@@ -12,6 +12,8 @@ sets a global default device or dtype.
   - the first-order Jacobian is torch.func.vmap(torch.func.jacfwd(...))
   - FGMRES with banded block-Jacobi sweeps; on a CUDA card the banded
     block apply is a hand-written kernel (csrc/banded_apply.cu)
+  - from 262,144 vector elements GMRES runs blocked, and each basis append
+    is a hand-written kernel too (csrc/row_set.cu)
 """
 
 NDIM = 2

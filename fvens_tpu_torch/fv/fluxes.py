@@ -1,4 +1,4 @@
-"""Inviscid numerical fluxes (the Roe flux of the main path).
+"""Inviscid numerical fluxes (Roe and HLLC, the fluxes of the ported cases).
 
 Each flux is a pure, branch-free (torch.where) function of (ul, ur, n) with
 the variable index LAST, so the same code runs on one (4,) state pair inside
@@ -6,9 +6,10 @@ torch.func.jacfwd and on a whole (F, 4) face batch in the residual.
 
 Formulas follow the reference exactly:
   Roe      anumericalflux.cpp:668-737 (Harten entropy fix, eps = 1e-4 * c_roe)
+  HLLC     :1176-1231 (Batten star states, Einfeldt signal speeds)
 
-LLF, Van Leer, AUSM, AUSM+, HLL and HLLC are still to be ported; get_flux
-raises NotImplementedError for them.
+LLF, Van Leer, AUSM, AUSM+ and HLL are still to be ported; get_flux raises
+NotImplementedError for them.
 """
 
 from __future__ import annotations
@@ -105,8 +106,59 @@ def roe_flux(phy: GasPhysics, ul, ur, n, frozen=False):
     return 0.5 * (fi + fj - adu)
 
 
+def _einfeldt_speeds(phy, ul, ur, n):
+    (vxi, vyi, vni, vm2i, pi, Hi, ci,
+     vxj, vyj, vnj, vm2j, pj, Hj, cj,
+     rhoij, vxij, vyij, vnij, vm2ij, Hij, cij) = _roe_averages(phy, ul, ur, n)
+    sl = torch.minimum(vni - ci, vnij - cij)
+    sr = torch.maximum(vnj + cj, vnij + cij)
+    return vni, pi, Hi, vnj, pj, Hj, sl, sr
+
+
+def _hllc_star(u, n, vn, p, ss, sm):
+    """Batten star state (anumericalflux.cpp:1071-1081)."""
+    pstar = u[..., 0] * (vn - ss) * (vn - sm) + p
+    inv = 1.0 / (ss - sm)
+    return torch.stack([
+        u[..., 0] * (ss - vn) * inv,
+        ((ss - vn) * u[..., 1] + (pstar - p) * n[..., 0]) * inv,
+        ((ss - vn) * u[..., 2] + (pstar - p) * n[..., 1]) * inv,
+        ((ss - vn) * u[..., 3] - p * vn + pstar * sm) * inv,
+    ], dim=-1)
+
+
+def hllc_flux(phy: GasPhysics, ul, ur, n, frozen=False):
+    vni, pi, Hi, vnj, pj, Hj, sl, sr = _einfeldt_speeds(phy, ul, ur, n)
+    sl = _maybe_freeze(sl, frozen)
+    sr = _maybe_freeze(sr, frozen)
+    rl, rr = ul[..., 0], ur[..., 0]
+    sm = ((rr * vnj * (sr - vnj) - rl * vni * (sl - vni) + pi - pj)
+          / (rr * (sr - vnj) - rl * (sl - vni)))
+    sm = _maybe_freeze(sm, frozen)
+
+    fl = _dirflux(ul, n, vni, pi)
+    fr = _dirflux(ur, n, vnj, pj)
+    # guard the (ss - sm) divisions: only evaluated where sign-definite.
+    # jacfwd differentiates both branches of every torch.where, so without
+    # the guards an unselected star state's division by zero would leave a
+    # NaN tangent behind
+    sl_safe = torch.where(sl >= sm, sm - 1.0, sl)
+    sr_safe = torch.where(sr <= sm, sm + 1.0, sr)
+    ulstr = _hllc_star(ul, n, vni, pi, sl_safe, sm)
+    urstr = _hllc_star(ur, n, vnj, pj, sr_safe, sm)
+
+    f_lstar = fl + sl[..., None] * (ulstr - ul)
+    f_rstar = fr + sr[..., None] * (urstr - ur)
+
+    sl, sm, sr = sl[..., None], sm[..., None], sr[..., None]
+    return torch.where(sl > 0, fl,
+                       torch.where(sm > 0, f_lstar,
+                                   torch.where(sr >= 0, f_rstar, fr)))
+
+
 FLUX_FUNCTIONS = {
     "ROE": roe_flux,
+    "HLLC": hllc_flux,
 }
 
 
@@ -117,5 +169,6 @@ def get_flux(name: str):
         return FLUX_FUNCTIONS[key]
     if key in FLUXES:
         raise NotImplementedError(
-            f"inviscid flux '{name}' is not ported yet (only ROE is)")
+            f"inviscid flux '{name}' is not ported yet (only "
+            f"{', '.join(FLUX_FUNCTIONS)} are)")
     raise ValueError(f"unknown inviscid flux '{name}'")

@@ -8,8 +8,10 @@ O(m) Givens/Hessenberg scalar work runs on the host in NumPy at the Krylov
 dtype, fed by ONE device->host copy per iteration (the copy that the
 convergence test needs anyway).
 
-The gather-path preconditioners (bcsgs, ilu0, bline, amg) and the blocked
-low-traffic GMRES path of the JAX package are still to be ported.
+GMRES has both of the JAX package's paths: the classic CGS2 one and, from
+262,144 vector elements, the blocked low-traffic one, whose basis appends
+are the CUDA kernel of solver/rowset_kernels.py. The gather-path
+preconditioners (bcsgs, ilu0, bline, amg) are still to be ported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from .rowset_kernels import row_set
 
 
 class BlockJacobian(NamedTuple):
@@ -103,41 +107,111 @@ def _norm2(v):
     return torch.sqrt(torch.sum(v * v))
 
 
-def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
-          maxiter: int = 30, rtol: float = 1e-1):
-    """Right-preconditioned restarted flexible GMRES on (NC,V)-shaped
-    vectors: the classic CGS2 path of the JAX package (two dense
-    Gram-Schmidt passes per iteration, stored preconditioned directions Z so
-    iteration-dependent preconditioners stay legal).
+# Above this many vector elements gmres runs the blocked path by itself, as
+# the JAX package does; below it the classic CGS2 path stays bit-identical.
+# Read at call time, so a test can lower it.
+_BLOCKED_N_THRESHOLD = 262_144
+_ROW_BLOCK = 8           # the JAX package's MGS block height (its arithmetic)
 
-    Matches the reference's Krylov settings (FGMRES, alinalg.cpp).
-    Returns (x, iterations, relres) with iterations a Python int and relres
-    a NumPy scalar of the Krylov dtype.
+
+def _mgs_pass(V, w, rows: int):
+    """One blocked modified-Gram-Schmidt pass of w against V[:rows]: each
+    8-row block is projected out of w before the next is read, over the
+    ceil(rows/8)*8 filled-or-zero rows only (rows past `rows`-1 are still
+    zero and project nothing). Returns (h, w_new) with h (mpad,) zero
+    beyond the blocks read."""
+    B = _ROW_BLOCK
+    h = torch.zeros(V.shape[0], dtype=w.dtype, device=w.device)
+    for i in range(0, rows, B):
+        Vb = V[i:i + B]
+        hb = Vb @ w
+        w = w - hb @ Vb
+        h[i:i + B] = hb
+    return h, w
+
+
+def _rows_combine(M, y, rows: int):
+    """x-update helper: M[:rows].T @ y, reading only the used rows."""
+    return M[:rows].T @ y
+
+
+def _hessenberg_column(hcol, j, cs, sn, g, tiny):
+    """Apply the stored Givens rotations to the new column hcol, form the
+    j-th rotation and update g, all on the host at the Krylov dtype.
+    Returns |g[j+1]|, the new residual estimate."""
+    for i in range(j):
+        t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+        t2 = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+        hcol[i], hcol[i + 1] = t1, t2
+
+    denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        # a NaN column propagates like on the device; the caller sees a
+        # non-finite relres and rejects the step
+        c_new = hcol[j] / np.maximum(denom, tiny)
+        s_new = hcol[j + 1] / np.maximum(denom, tiny)
+    hcol[j] = denom
+    hcol[j + 1] = 0.0
+    cs[j] = c_new
+    sn[j] = s_new
+    g[j + 1] = -s_new * g[j]
+    g[j] = c_new * g[j]
+    return np.abs(g[j + 1])
+
+
+def _least_squares(H, g, j, dev):
+    """y of the upper-triangular system H[:j, :j] y = g[:j], on `dev`."""
+    R = torch.from_numpy(np.ascontiguousarray(H[:j, :j]))
+    rhs_t = torch.from_numpy(g[:j].copy())[:, None]
+    return torch.linalg.solve_triangular(R, rhs_t, upper=True)[:, 0].to(dev)
+
+
+def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
+          maxiter: int = 30, rtol: float = 1e-1, blocked: bool | None = None):
+    """Right-preconditioned restarted flexible GMRES on (NC,V)-shaped
+    vectors. Matches the reference's Krylov settings (FGMRES,
+    alinalg.cpp). Returns (x, iterations, relres) with iterations a Python
+    int and relres a NumPy scalar of the Krylov dtype.
+
+    Two paths, as in the JAX package; `blocked=None` takes the blocked one
+    once a vector has at least _BLOCKED_N_THRESHOLD elements:
+      - classic: two dense classical Gram-Schmidt passes per iteration over
+        the filled basis rows, and stored preconditioned directions Z, so
+        iteration-dependent preconditioners stay legal;
+      - blocked: one blocked-MGS pass (_mgs_pass), a second only when it
+        removed more than 30% of w's norm (wn1 < 0.7 wn0), and no Z store:
+        the preconditioners of this package are fixed linear operators per
+        step, so x += pc(V[:j]^T y) costs one trailing pc apply instead of
+        an (m, n) store. The basis is (ceil((m+1)/8)*8, n), allocated once
+        per cycle and written in place, each new row by row_set (the CUDA
+        kernel of solver/rowset_kernels.py on a CUDA tensor).
 
     Eager-GPU design: each iteration's Hessenberg column (h and the new
     norm) comes to the host in one copy; the Givens rotations, the
     convergence test and the triangular solve run there in NumPy at the
-    Krylov dtype, so the O(m) scalar work costs no kernel launches.
+    Krylov dtype, so the O(m) scalar work costs no kernel launches. The
+    blocked path's second-pass decision fetches the two norms in one more
+    copy per iteration.
     """
     if b.is_cuda:
         # the f32 Arnoldi products must run in full f32, never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     shape = b.shape
-    dtype = b.dtype
-    dev = b.device
     n = b.numel()
-    hdt = np.float32 if dtype == torch.float32 else np.float64
+    hdt = np.float32 if b.dtype == torch.float32 else np.float64
     tiny = hdt(1e-300)          # 0 in f32, as the JAX package's weak scalar
     bf = b.reshape(n)
+    if blocked is None:
+        blocked = n >= _BLOCKED_N_THRESHOLD
 
     mv = lambda v: matvec(v.reshape(shape)).reshape(n)
     pcf = lambda v: pc(v.reshape(shape)).reshape(n)
 
     bnorm = hdt(_norm2(bf).item())
     tol = hdt(rtol) * bnorm
-    m = restart
     ncycles = max(1, -(-maxiter // restart))
+    cycle = _cycle_blocked if blocked else _cycle_classic
 
     x = x0.reshape(n).clone()
     iters = 0
@@ -145,66 +219,91 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
     for c in range(ncycles):
         if c > 0 and not res > tol:
             break               # converged restarts skip the whole cycle
-        r = bf - mv(x)
-        beta_d = _norm2(r)
-        V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
-        Z = torch.zeros((m, n), dtype=dtype, device=dev)
-        V[0] = r / torch.clamp_min(beta_d, 1e-300)
-        beta = hdt(beta_d.item())
-
-        H = np.zeros((m + 1, m), hdt)
-        cs = np.zeros(m, hdt)
-        sn = np.zeros(m, hdt)
-        g = np.zeros(m + 1, hdt)
-        g[0] = beta
-        j = 0
-        res = beta
-        while j < m and res > tol:
-            z = pcf(V[j])
-            w = mv(z)
-            Z[j] = z
-
-            # classical Gram-Schmidt with one re-orthogonalization pass,
-            # over the j+1 filled basis rows
-            Vj = V[:j + 1]
-            h = Vj @ w
-            w = w - Vj.T @ h
-            h2 = Vj @ w
-            w = w - Vj.T @ h2
-            h = h + h2
-            hn = _norm2(w)
-            V[j + 1] = w / torch.clamp_min(hn, 1e-300)
-            hcol = np.zeros(m + 1, hdt)
-            hcol[:j + 2] = torch.cat([h, hn[None]]).cpu().numpy()
-
-            # apply the stored Givens rotations to the new column
-            for i in range(j):
-                t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                t2 = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
-                hcol[i], hcol[i + 1] = t1, t2
-
-            denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
-            with np.errstate(invalid="ignore", divide="ignore"):
-                # a NaN column propagates like on the device; the caller
-                # sees a non-finite relres and rejects the step
-                c_new = hcol[j] / np.maximum(denom, tiny)
-                s_new = hcol[j + 1] / np.maximum(denom, tiny)
-            hcol[j] = denom
-            hcol[j + 1] = 0.0
-            cs[j] = c_new
-            sn[j] = s_new
-            g[j + 1] = -s_new * g[j]
-            g[j] = c_new * g[j]
-
-            H[:, j] = hcol
-            res = np.abs(g[j + 1])
-            j += 1
-
-        if j > 0:
-            # the upper-triangular system H[:j, :j] y = g[:j]
-            R = torch.from_numpy(np.ascontiguousarray(H[:j, :j]))
-            rhs_t = torch.from_numpy(g[:j].copy())[:, None]
-            y = torch.linalg.solve_triangular(R, rhs_t, upper=True)[:, 0]
-            x = x + Z[:j].T @ y.to(device=dev)
+        x, j, res = cycle(mv, pcf, bf, x, restart, tol, hdt)
         iters += j
     return x.reshape(shape), iters, res / np.maximum(bnorm, tiny)
+
+
+def _cycle_classic(mv, pcf, bf, x, m, tol, hdt):
+    """One restart cycle of the classic CGS2 path. Returns (x, j, res)."""
+    n, dtype, dev = bf.numel(), bf.dtype, bf.device
+    tiny = hdt(1e-300)
+    r = bf - mv(x)
+    beta_d = _norm2(r)
+    V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
+    Z = torch.zeros((m, n), dtype=dtype, device=dev)
+    V[0] = r / torch.clamp_min(beta_d, 1e-300)
+    beta = hdt(beta_d.item())
+
+    H = np.zeros((m + 1, m), hdt)
+    cs = np.zeros(m, hdt)
+    sn = np.zeros(m, hdt)
+    g = np.zeros(m + 1, hdt)
+    g[0] = beta
+    j = 0
+    res = beta
+    while j < m and res > tol:
+        z = pcf(V[j])
+        w = mv(z)
+        Z[j] = z
+
+        # classical Gram-Schmidt with one re-orthogonalization pass, over
+        # the j+1 filled basis rows
+        Vj = V[:j + 1]
+        h = Vj @ w
+        w = w - Vj.T @ h
+        h2 = Vj @ w
+        w = w - Vj.T @ h2
+        h = h + h2
+        hn = _norm2(w)
+        V[j + 1] = w / torch.clamp_min(hn, 1e-300)
+        hcol = np.zeros(m + 1, hdt)
+        hcol[:j + 2] = torch.cat([h, hn[None]]).cpu().numpy()
+        res = _hessenberg_column(hcol, j, cs, sn, g, tiny)
+        H[:, j] = hcol
+        j += 1
+
+    if j > 0:
+        x = x + Z[:j].T @ _least_squares(H, g, j, dev)
+    return x, j, res
+
+
+def _cycle_blocked(mv, pcf, bf, x, m, tol, hdt):
+    """One restart cycle of the blocked path. Returns (x, j, res)."""
+    n, dtype, dev = bf.numel(), bf.dtype, bf.device
+    tiny = hdt(1e-300)
+    mpad = -(-(m + 1) // _ROW_BLOCK) * _ROW_BLOCK
+    r = bf - mv(x)
+    beta_d = _norm2(r)
+    V = torch.zeros((mpad, n), dtype=dtype, device=dev)
+    V[0] = r / torch.clamp_min(beta_d, 1e-300)
+    beta = hdt(beta_d.item())
+
+    H = np.zeros((m + 1, m), hdt)
+    cs = np.zeros(m, hdt)
+    sn = np.zeros(m, hdt)
+    g = np.zeros(m + 1, hdt)
+    g[0] = beta
+    j = 0
+    res = beta
+    while j < m and res > tol:
+        w = mv(pcf(V[j]))
+        wn0 = _norm2(w)
+        h, w = _mgs_pass(V, w, j + 1)
+        hn = _norm2(w)
+        wn = torch.stack([wn0, hn]).cpu().numpy()
+        # the selective second pass, decided at the Krylov dtype
+        if wn[1] < hdt(0.7) * wn[0]:
+            h2, w = _mgs_pass(V, w, j + 1)
+            h = h + h2
+            hn = _norm2(w)
+        row_set(V, j + 1, w, hn)
+        hcol = np.zeros(m + 1, hdt)
+        hcol[:j + 2] = torch.cat([h[:j + 1], hn[None]]).cpu().numpy()
+        res = _hessenberg_column(hcol, j, cs, sn, g, tiny)
+        H[:, j] = hcol
+        j += 1
+
+    if j > 0:
+        x = x + pcf(_rows_combine(V, _least_squares(H, g, j, dev), j))
+    return x, j, res

@@ -52,7 +52,12 @@ class NumericalError(ArithmeticError):
 
 
 class ToleranceError(RuntimeError):
-    """Did not converge to tolerance within max iterations."""
+    """Did not converge to tolerance within max iterations; `info` is the
+    solve's SolveInfo."""
+
+    def __init__(self, msg, info=None):
+        super().__init__(msg)
+        self.info = info
 
 
 @dataclasses.dataclass
@@ -406,5 +411,6 @@ class SteadyBackwardEuler:
                           or bool(self.cfg.tol_abs
                                   and res <= self.cfg.tol_abs))
         if not info.converged and max_steps is None:
-            raise ToleranceError("implicit steady solve did not converge")
+            raise ToleranceError("implicit steady solve did not converge",
+                                 info)
         return u, info

@@ -1,4 +1,5 @@
-"""The CUDA banded-apply kernel against its plain PyTorch twin, on the card.
+"""The CUDA kernels (banded_apply, row_set) against their plain PyTorch
+twins, on the card.
 
 Needs a CUDA card and nvcc: marked `gpu`, and each test skips when
 torch.cuda.is_available() is false. Imports no JAX, so it runs where JAX is
@@ -7,8 +8,10 @@ not installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
 
-Tolerances: f32 to 1e-5 of max|y|, f64 to 1e-12 of max|y| (the kernel
-fuses multiply-adds and sums bands in another order than the twin).
+Tolerances: banded_apply f32 to 1e-5 of max|y|, f64 to 1e-12 of max|y|
+(the kernel fuses multiply-adds and sums bands in another order than the
+twin); row_set bit for bit (one true IEEE division per element, as the
+twin).
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from fvens_tpu_torch.cases.bench_case import bench_solver
 from fvens_tpu_torch.cases.casesolvers import initial_state
 from fvens_tpu_torch.solver import banded as tb
 from fvens_tpu_torch.solver import banded_kernels as bk
+from fvens_tpu_torch.solver import rowset_kernels as rk
 
 pytestmark = pytest.mark.gpu
 
@@ -105,3 +109,65 @@ def test_kernel_refuses_bad_input(cuda):
     with pytest.raises(TypeError):
         bk.banded_apply(bands, torch.zeros(8, 4, device=cuda,
                                            dtype=torch.float64), (0, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,j", [(1, 0), (1000, 5), (262_528, 95),
+                                 (819_200, 1)])
+def test_row_set_matches_twin_bit_for_bit(cuda, dtype, n, j):
+    """Any n (262,528: where the TPU kernel's tile gate refuses the row),
+    any row of the (96, n) basis; in place, one launch."""
+    g = np.random.default_rng(n + j)
+    V = torch.from_numpy(g.standard_normal((96, n))).to(cuda, dtype)
+    w = torch.from_numpy(g.standard_normal(n)).to(cuda, dtype)
+    hn = torch.sqrt(torch.sum(w * w))
+    want = rk.rowset_plain(V.clone(), j, w, hn)
+    ptr, n0 = V.data_ptr(), rk.row_set.launches
+    assert rk.row_set(V, j, w, hn) is V
+    torch.cuda.synchronize()
+    assert rk.row_set.launches == n0 + 1 and V.data_ptr() == ptr
+    assert torch.equal(V, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_set_strided_row_and_norm_clamp(cuda, dtype):
+    """A row of a column slice (row stride 1100 > n = 1000) leaves the rest
+    of the storage alone; a zero norm is clamped at 1e-300 in f64 and at 0
+    in f32, and a NaN norm stays NaN, as in the twin."""
+    g = np.random.default_rng(3)
+    big = torch.zeros(8, 1100, device=cuda, dtype=dtype)
+    V = big[:, 50:1050]
+    w = torch.from_numpy(g.standard_normal(1000)).to(cuda, dtype)
+    w[7] = 0.0
+    rk.row_set(V, 3, w, torch.tensor(4.0, device=cuda, dtype=dtype))
+    torch.cuda.synchronize()
+    assert torch.equal(big[3, 50:1050], w / 4.0)
+    assert not big[:, :50].any() and not big[:, 1050:].any()
+    assert not big[:3].any() and not big[4:].any()
+    for hn in (0.0, float("nan")):
+        h = torch.tensor(hn, device=cuda, dtype=dtype)
+        rk.row_set(V, 5, w, h)
+        want = rk.rowset_plain(V.clone(), 5, w, h)
+        torch.cuda.synchronize()
+        assert torch.allclose(V, want, rtol=0.0, atol=0.0, equal_nan=True)
+    assert torch.isnan(V[5]).all()
+
+
+def test_row_set_refuses_bad_input(cuda):
+    V = torch.zeros(8, 16, device=cuda)
+    w = torch.zeros(16, device=cuda)
+    hn = torch.ones((), device=cuda)
+    with pytest.raises(ValueError):
+        rk.row_set(V, 0, w.cpu(), hn)                  # w on the host
+    with pytest.raises(ValueError):
+        rk.row_set(V, 0, w, hn.cpu())                  # hn on the host
+    with pytest.raises(TypeError):
+        rk.row_set(V, 0, w.double(), hn)               # mixed dtypes
+    with pytest.raises(TypeError):
+        rk.row_set(V.half(), 0, w.half(), hn.half())   # unsupported dtype
+    with pytest.raises(ValueError):
+        rk.row_set(V, 0, w[:15], hn)                   # wrong length
+    with pytest.raises(ValueError):
+        rk.row_set(V, 8, w, hn)                        # row out of range
+    with pytest.raises(ValueError):
+        rk.row_set(torch.zeros(16, 8, device=cuda).T, 0, w, hn)

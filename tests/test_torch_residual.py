@@ -1,14 +1,17 @@
-"""The port's residual, boundary states, Roe flux and slot Jacobian against
-the JAX package's, at f64 on the laminar NACA0012 case (the main path's
-physics: M 0.5, Re 5000, Roe, weighted least squares, LINEAR, adiabatic
-wall + inflow/outflow) on naca0012_omesh(64, 16).
+"""The port's residual, boundary states, Roe and HLLC fluxes and slot
+Jacobian against the JAX package's, at f64: on the laminar NACA0012 case
+(the bench's physics: M 0.5, Re 5000, Roe, weighted least squares, LINEAR,
+adiabatic wall + inflow/outflow) on naca0012_omesh(64, 16), and on the
+inviscid cylinder case (M 0.38, HLLC, slip wall + far field) on
+cylinder_omesh(32, 16).
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: rhs and dt to 1e-12 relative (the same arithmetic, summed in
 the same slot order); Jacobian blocks to 1e-11 of the largest block entry
-(forward-mode AD in two frameworks).
+(forward-mode AD in two frameworks); pointwise fluxes to 1e-13.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -19,17 +22,19 @@ import torch
 
 from fvens_tpu.cases.casesolvers import build_space as jax_build_space
 from fvens_tpu.fv import bcs as jbcs
+from fvens_tpu.fv.fluxes import hllc_flux as jax_hllc_flux
 from fvens_tpu.fv.fluxes import roe_flux as jax_roe_flux
 from fvens_tpu.mesh import compile_mesh as jax_compile_mesh
-from fvens_tpu.mesh.meshgen import naca0012_omesh
+from fvens_tpu.mesh.meshgen import cylinder_omesh, naca0012_omesh
 from fvens_tpu.solver import jacobian as jjac
 from fvens_tpu_torch import interop
 from fvens_tpu_torch.cases.bench_case import bench_config
+from fvens_tpu_torch.cases.bigmesh_case import case_config as cyl_config
 from fvens_tpu_torch.cases.casesolvers import build_space
 from fvens_tpu_torch.config import (BC_NAMES, FlowCaseConfig, NumericsConfig,
                                     PhysicsConfig)
 from fvens_tpu_torch.fv import bcs as tbcs
-from fvens_tpu_torch.fv.fluxes import roe_flux
+from fvens_tpu_torch.fv.fluxes import hllc_flux, roe_flux
 from fvens_tpu_torch.mesh import compile_mesh
 from fvens_tpu_torch.solver import jacobian as tjac
 
@@ -62,6 +67,37 @@ def _case(ni=64, nj=16, seed=0, amp=0.01):
     u = np.tile(np.asarray(js.uinf), (jm.NC, 1))
     u = u * (1.0 + amp * rng.standard_normal(u.shape))
     return jm, tm, js, ts, u
+
+
+def to_jax_config(obj):
+    """The JAX package's config object with every field of the port's (the
+    two config modules define the same dataclasses)."""
+    import fvens_tpu.config as jc
+    if dataclasses.is_dataclass(obj):
+        return getattr(jc, type(obj).__name__)(**{
+            f.name: to_jax_config(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_jax_config(o) for o in obj)
+    return obj
+
+
+@functools.lru_cache(maxsize=None)
+def cyl_meshes(ni, nj):
+    """(jax mesh, torch mesh) of the cylinder case's O-mesh at f64."""
+    cfg = cyl_config()
+    md = cylinder_omesh(ni, nj, stretch=1.15 ** (20.0 / nj))
+    return (jax_compile_mesh(md, cfg.bcs, dtype=jnp.float64),
+            compile_mesh(md, cfg.bcs, dtype=torch.float64))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_cyl_space():
+    """The JAX package's cylinder-case space, residual and Jacobian."""
+    js = jax_build_space(to_jax_config(cyl_config()))
+    res = jax.jit(lambda m, u: js.compute_residual(m, u, True))
+    jac = jax.jit(js.assemble_jacobian)
+    return js, res, jac
 
 
 def _close(a, b, tol):
@@ -175,8 +211,80 @@ def test_roe_flux_matches_jax_batched_and_single():
     np.testing.assert_allclose(f0.numpy(), ft[0].numpy(), rtol=1e-15)
 
 
+def _hllc_states(B=256, seed=8):
+    """Random state pairs and normals over every branch of HLLC:
+    supersonic either way, subsonic either side of the contact."""
+    rng = np.random.default_rng(seed)
+    js = jax_cyl_space()[0]
+    uinf = np.asarray(js.uinf)
+
+    def states():
+        u = uinf * (1.0 + 0.2 * rng.standard_normal((B, 4)))
+        u[:, 1:3] = u[:, :1] * rng.uniform(-6.0, 6.0, (B, 2))
+        u[:, 3] += 0.5 * (u[:, 1] ** 2 + u[:, 2] ** 2) / u[:, 0]
+        return u
+    th = rng.uniform(0, 2 * np.pi, B)
+    return states(), states(), np.stack([np.cos(th), np.sin(th)], 1)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_hllc_flux_and_jacobian_match_jax(frozen):
+    """The HLLC flux and its forward-mode Jacobian (frozen wave speeds or
+    not) on random states that reach all four branches, to 1e-13."""
+    from torch.func import jacfwd
+    ul, ur, n = _hllc_states()
+    js = jax_cyl_space()[0]
+    ts = build_space(cyl_config())
+    fj = jax.vmap(lambda a, b, c: jax_hllc_flux(js.phy, a, b, c))(
+        jnp.asarray(ul), jnp.asarray(ur), jnp.asarray(n))
+    T = torch.from_numpy
+    ft = hllc_flux(ts.phy, T(ul), T(ur), T(n))
+    _close(fj, ft.numpy(), 1e-13)
+    f0 = hllc_flux(ts.phy, T(ul[0]), T(ur[0]), T(n[0]))
+    np.testing.assert_allclose(f0.numpy(), ft[0].numpy(), rtol=1e-15)
+
+    # every one of the four branches occurs: supersonic to the right or
+    # left, subsonic on either side of the contact
+    def vn_c(u):
+        p = ts.phy.pressure(T(u)).numpy()
+        return ((u[:, 1] * n[:, 0] + u[:, 2] * n[:, 1]) / u[:, 0],
+                np.sqrt(1.4 * p / u[:, 0]))
+    (vl, cl), (vr, cr) = vn_c(ul), vn_c(ur)
+    assert (vl - cl > 0).any() and (vr + cr < 0).any()
+    assert ((vl > 0) & (vl - cl < 0)).any()
+    assert ((vr < 0) & (vr + cr > 0)).any()
+
+    Jj = jax.vmap(jax.jacfwd(lambda a, b, c: jax_hllc_flux(
+        js.phy, a, b, c, frozen=frozen), argnums=(0, 1)))(
+        jnp.asarray(ul), jnp.asarray(ur), jnp.asarray(n))
+    jt = torch.func.vmap(jacfwd(lambda a, b, c: hllc_flux(
+        ts.phy, a, b, c, frozen=frozen), argnums=(0, 1)))(T(ul), T(ur), T(n))
+    for a, b in zip(Jj, jt):
+        assert np.isfinite(b.numpy()).all()
+        _close(a, b.numpy(), 1e-13)
+
+
+def test_hllc_residual_and_jacobian_match_jax():
+    """The second-order HLLC residual and dt (1e-12) and the slot Jacobian
+    (1e-11) of the cylinder case on cylinder_omesh(32, 16)."""
+    jm, tm = cyl_meshes(32, 16)
+    js, res, jac = jax_cyl_space()
+    ts = build_space(cyl_config())
+    rng = np.random.default_rng(9)
+    u = np.tile(np.asarray(js.uinf), (jm.NC, 1))
+    u = u * (1.0 + 0.01 * rng.standard_normal(u.shape))
+    rj, dj = res(jm, jnp.asarray(u))
+    rt, dt = ts.compute_residual(tm, interop.state_from_numpy(u), True)
+    _close(rj, rt.numpy(), 1e-12)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-12)
+    Jj = jac(jm, jnp.asarray(u))
+    Jt = ts.assemble_jacobian(tm, interop.state_from_numpy(u))
+    _close(Jj.D, Jt.D.numpy(), 1e-11)
+    _close(Jj.N, Jt.N.numpy(), 1e-11)
+
+
 @pytest.mark.parametrize("numerics", [
-    dict(flux="HLLC"), dict(gradient="GREENGAUSS"),
+    dict(flux="AUSM"), dict(gradient="GREENGAUSS"),
     dict(reconstruction="VENKATAKRISHNAN")])
 def test_unported_numerics_refused(numerics):
     base = dict(flux="ROE", gradient="LEASTSQUARES",
