@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card, each through both CUDA kernels'
-wrappers with the launch counts zeroed just before it and read just after:
+Drives the port's two paths on the card, each through the three CUDA
+kernels' wrappers with the launch counts zeroed just before it and read just
+after:
 
   - the large-mesh path: the inviscid cylinder of
     cases/bigmesh_case.run_solve at its full 640x320 mesh (204,800 cells,
     n = 819,200; M 0.38, HLLC, weighted least squares, LINEAR; a
     first-order starter, then the second-order main solve, CFL 500 -> 5000
     to an absolute residual of 1e-10; f32 Jacobian/Krylov inside the f64
-    residual/update; FGMRES(90) at rtol 1e-2, bsgs x6, banded). gmres takes
-    its blocked path there by itself, whose basis appends are the row_set
+    residual/update; FGMRES(90) at rtol 1e-2, bsgs x6, banded). Each Krylov
+    iteration is one banded_apply launch (the matvec) and one launch of the
+    fused bsgs kernel (the whole preconditioner apply); gmres takes its
+    blocked path there by itself, whose basis appends are the row_set
     kernel;
   - the bench path of the first slice: the banded laminar NACA0012 solve on
     naca0012_omesh(160, 80) (cases/bench_case.run_solve, 600 steps).
@@ -19,23 +22,33 @@ wrappers with the launch counts zeroed just before it and read just after:
 In order:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds csrc/banded_apply.cu and csrc/row_set.cu from the checkout, one
-     nvcc each, both at once, and prints ptxas's registers and spills;
-  3. holds banded_apply against its plain PyTorch twin on the real step-0
-     operators of both paths (matvec K=7, D^-1 v K=1, bsgs sweep K=6) at
-     f32 (max abs error <= 1e-5 max|y|) and f64 (<= 1e-12 max|y|), and
-     row_set against its twin at n = 819,200 (the 640x320 basis) and
-     262,528 (where the TPU kernel's tile gate refuses the row) at f32 and
-     f64: bit for bit, the other basis rows unchanged, V's storage
-     unchanged; times both;
+  2. builds csrc/banded_apply.cu, csrc/banded_bsgs.cu and csrc/row_set.cu
+     from the checkout, one nvcc each, all at once, and prints ptxas's
+     registers and spills;
+  3. holds each kernel against its plain PyTorch twin: banded_apply on the
+     real step-0 operators of both paths (matvec K=7, D^-1 v K=1, bsgs sweep
+     K=6) and the fused bsgs apply on the same operators, at f32 (max abs
+     error <= 1e-5 max|y|) and f64 (<= 1e-12 max|y|), the fused apply also
+     equal value for value to the seven-launch banded_apply sequence; and
+     row_set at n = 819,200 (the 640x320 basis) and 262,528 (where the TPU
+     kernel's tile gate refuses the row) at f32 and f64: bit for bit, the
+     other basis rows unchanged, V's storage unchanged. Times each call
+     (CUDA events, median of TIMED_RUNS), its device time (device_ms: calls
+     queued back to back behind a device-side sleep), the twin, the fused
+     apply's sequence, and the matvec as one torch.sparse_bsr_tensor product
+     (library_ms; never on the path), and computes each kernel's bound;
   4. runs the 640x320 cylinder solve (a warm-up solve, then the timed one):
      gmres must run blocked (n >= linear._BLOCKED_N_THRESHOLD), the main
      solve must converge to 1e-10 with a finite state, row_set must launch
-     once per Krylov iteration (each appends one basis row) and
-     banded_apply at least 8 times per Krylov iteration. The run's counts
-     are printed beside the JAX package's TPU counts of the same case in
-     BENCH_BIGMESH.json, as context only;
-  5. runs the 160x80 cylinder with gmres forced blocked and holds it to
+     once per Krylov iteration (each appends one basis row), the fused bsgs
+     kernel at least once per Krylov iteration, and banded_apply at least
+     once and fewer than twice per Krylov iteration (the sweeps left it).
+     The run's counts are printed beside the JAX package's TPU counts of the
+     same case in BENCH_BIGMESH.json, as context only;
+  5. runs the first COMPARE_STEPS main steps of the 640x320 case from the
+     starter's state with the fused apply and with the sequence in its
+     place: Krylov iterations and residuals must be identical;
+  6. runs the 160x80 cylinder with gmres forced blocked and holds it to
      the JAX package's CPU runs in records/jax_bigmesh_history.json: it
      must converge, its starter must take the record's steps (Krylov
      iterations within 2%), its first AGREE_STEPS main steps must match the
@@ -45,29 +58,30 @@ In order:
      agree with each other step for step until the residual nears 1e-7 and
      then part (blocked 54 steps / 1,318 iterations, classic 49 / 850), so
      an endgame nearer to one of them than 10% of the other is no fault;
-  6. runs the bench solve (its full 600 steps), whose state must stay finite
-     with at least 8 banded_apply launches per Krylov iteration. It must
-     reach 1e-10 if the JAX package's own solve of the same case did
-     (JAX_RECORD, made by records/jax_bench_history.py); on this generated
-     mesh that solve does not converge, but cycles between residuals near
-     1e-3 and blowups, and the port's lowest residual must then be within
-     10x of the JAX package's;
-  7. runs the first-order (starter) form of the bench solve, which must
-     converge to 1e-10 through the kernel in the steps and Krylov
+  7. runs the bench solve (its full 600 steps), whose state must stay finite
+     with at least one banded_apply and one fused bsgs launch per Krylov
+     iteration. It must reach 1e-10 if the JAX package's own solve of the
+     same case did (JAX_RECORD, made by records/jax_bench_history.py); on
+     this generated mesh that solve does not converge, but cycles between
+     residuals near 1e-3 and blowups, and the port's lowest residual must
+     then be within 10x of the JAX package's;
+  8. runs the first-order (starter) form of the bench solve, which must
+     converge to 1e-10 through the kernels in the steps and Krylov
      iterations of the JAX package's run (JAX_RECORD);
-  8. runs the bench's first steps again through the plain twins: 3 steps
+  9. runs the bench's first steps again through the plain twins: 3 steps
      in full f64 (equal Krylov iterations per step, residuals to 1e-4), and
      the first step in mixed precision (equal iterations, the two residuals
      it determines to 1e-4). Later mixed-precision steps are not compared:
      at step 2 the f32 Krylov solve stops unconverged at 90 iterations and
      the trajectory turns chaotic (a rounding-level change becomes a
      residual tens of percent apart at step 3);
-  9. holds small solves on the card, through the kernel, to the JAX
+ 10. holds small solves on the card, through the kernels, to the JAX
      package's histories of the same inputs (SMALL_CASES).
 
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
-kernel record, and the one before that the seconds each phase took.
+kernel record (launches from the 640x320 solve of step 4), and the one
+before that the seconds each phase took.
 """
 
 import contextlib
@@ -82,10 +96,20 @@ import numpy as np
 KERNELS = {                     # name: (source, the TPU kernel it replaces)
     "banded_apply": ("fvens_tpu_torch/csrc/banded_apply.cu",
                      "fvens_tpu/solver/pallas_banded.py:107"),
+    "banded_bsgs": ("fvens_tpu_torch/csrc/banded_bsgs.cu",
+                    "fvens_tpu/solver/pallas_banded.py:107"),
     "row_set": ("fvens_tpu_torch/csrc/row_set.cu",
                 "fvens_tpu/solver/pallas_banded.py:254"),
 }
 TIMED_RUNS = 50
+# The least time of a kernel: its bytes (each input read once, each output
+# written once) over the card's memory rate, or its operations over the
+# peak rate of their type, whichever is larger. H100 SXM: 3.35 TB/s of HBM,
+# 67 TFLOP/s f32 outside the tensor cores, 34 TFLOP/s f64 (NVIDIA's data
+# sheet).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+COMPARE_STEPS = 10               # main steps, fused pc vs the sequence
 # The JAX package's starter -> main runs of the cylinder case on the CPU
 # with x64 (records/jax_bigmesh_history.py), and its TPU runs of the same
 # case at 640x320 (scripts/bench_bigmesh.py; counts only, as context).
@@ -163,6 +187,13 @@ def event_ms(fn, runs=TIMED_RUNS):
     return float(np.median(times))
 
 
+def bound(nbytes: float, flops: float, dtype: str):
+    """(bound_ms, bound_by) of work that moves nbytes and does flops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def _load(rel: str):
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            rel)) as f:
@@ -184,17 +215,20 @@ def cylinder_record(mesh: str) -> list:
 
 
 def build_kernels():
-    """Both CUDA libraries, one nvcc each, started together."""
+    """The three CUDA libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fvens_tpu_torch.solver import banded_kernels as bk
     from fvens_tpu_torch.solver import rowset_kernels as rk
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        jobs = {name: ex.submit(mod.load_library)
-                for name, mod in (("banded_apply", bk), ("row_set", rk))}
+    loaders = {"banded_apply": bk.load_library,
+               "banded_bsgs": bk.load_bsgs_library,
+               "row_set": rk.load_library}
+    with ThreadPoolExecutor(len(loaders)) as ex:
+        jobs = {name: ex.submit(fn) for name, fn in loaders.items()}
         builds = {name: job.result() for name, job in jobs.items()}
-    print(f"build: {time.perf_counter() - t0:.2f} s for both", flush=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s for all three",
+          flush=True)
     for name, build in builds.items():
         print(f"  {name}: nvcc {build.seconds:.2f} s -> "
               f"{os.path.relpath(build.path)}", flush=True)
@@ -203,47 +237,156 @@ def build_kernels():
                 print("    ptxas:", line.strip(), flush=True)
 
 
+def bsr_library_matvec(D, Bt, offsets):
+    """The matvec as one PyTorch call, for its time only (never on the
+    path): a torch.sparse_bsr_tensor of its 4x4 blocks, bands of one shift
+    summed (the O-mesh seam bands share a shift with interior bands, and
+    only one of the two is nonzero at a cell), times x. Returns mv(x)."""
+    import torch
+    from fvens_tpu_torch.solver.banded import _norm_offsets
+
+    NC = D.shape[0]
+    dms = (0,) + _norm_offsets(offsets, NC)
+    blocks = torch.cat([D.permute(1, 2, 0)[None], Bt])      # (K+1, 4, 4, NC)
+    shifts = sorted(set(dms))
+    merged = torch.stack([sum(blocks[k] for k, d in enumerate(dms)
+                              if d == u) for u in shifts])
+    cells = torch.arange(NC, device=D.device)
+    cols = torch.stack([(cells + u) % NC for u in shifts], dim=1)
+    cols, order = cols.sort(dim=1)
+    vals = merged.permute(3, 0, 1, 2).gather(
+        1, order[:, :, None, None].expand(-1, -1, 4, 4))
+    crow = torch.arange(0, NC * len(shifts) + 1, len(shifts),
+                        device=D.device)
+    A = torch.sparse_bsr_tensor(crow, cols.reshape(-1),
+                                vals.reshape(-1, 4, 4).contiguous(),
+                                size=(4 * NC, 4 * NC), check_invariants=False)
+
+    def mv(x):
+        return (A @ x.reshape(-1, 1)).reshape(NC, 4)
+    return mv
+
+
 def banded_checks(dev, path: str, make):
-    """banded_apply vs its plain twin on the step-0 operators of one path,
-    at f32 (the mixed-precision Krylov system) and f64 (mixed precision
-    off). `make(mixed)` returns (solver, mesh)."""
+    """The K1 kernels against their plain twins on the step-0 operators of
+    one path, at f32 (the mixed-precision Krylov system) and f64 (mixed
+    precision off): banded_apply in its three roles (matvec K=7, D^-1 v
+    K=1, bsgs sweep K=6), and the fused bsgs apply, which must also equal
+    the seven-launch banded_apply sequence value for value. `make(mixed)`
+    returns (solver, mesh). Returns (banded_apply rows, bsgs rows)."""
     import torch
     from fvens_tpu_torch.cases.casesolvers import initial_state
+    from fvens_tpu_torch.cases.profile_step import device_ms
+    from fvens_tpu_torch.solver import banded as tb
     from fvens_tpu_torch.solver import banded_kernels as bk
 
     rng = np.random.default_rng(0)
-    rows = []
+    rows, frows = [], []
     for mixed, tol in ((True, 1e-5), (False, 1e-12)):
         solver, cm = make(mixed)
         _, _, ops = solver.step_operators(
             cm, initial_state(solver.space, cm), solver.cfg.cfl_init)
         dtype = ops.D.dtype
+        dname = str(dtype)[6:]
+        it = ops.D.element_size()
         bands7, d7 = bk.matvec_bands(ops.D, ops.Bt, ops.bl.offsets)
-        (bands1, d1), (bands6, d6) = bk.bsgs_bands(ops.Dinv, ops.DNbt,
+        (bands1, d1), (bandsn, dms_n) = bk.bsgs_bands(ops.Dinv, ops.DNbt,
                                                    ops.bl.offsets)
         x = torch.from_numpy(rng.standard_normal((cm.NC, 4))).to(dev, dtype)
         base = bk.banded_apply_plain(bands1, x, d1)
-        cases = (("matvec", bands7, d7, 1.0, None),
-                 ("dinv", bands1, d1, 1.0, None),
-                 ("sweep", bands6, d6, -1.0, base))
-        for name, bands, dms, sign, b in cases:
+        # the cells where each band is nonzero: the diagonal everywhere,
+        # the others over BandedStructure.support (the seam bands one ring)
+        whole = ((0, cm.NC),)
+        support = tuple(ops.bl.support)
+        cases = (("matvec", bands7, d7, 1.0, None, whole + support),
+                 ("dinv", bands1, d1, 1.0, None, whole),
+                 ("sweep", bandsn, dms_n, -1.0, base, support))
+        for name, bands, dms, sign, b, sup in cases:
             y = bk.banded_apply(bands, x, dms, sign, b)
             torch.cuda.synchronize()
             yp = bk.banded_apply_plain(bands, x, dms, sign, b)
             err = float((y - yp).abs().max())
             scale = float(yp.abs().max())
             row = dict(path=path, NC=cm.NC, op=name, K=bands.shape[0],
-                       dtype=str(dtype)[6:], max_abs_err=err,
+                       dtype=dname, max_abs_err=err,
                        max_abs_y=scale, tol=tol * scale)
             check(np.isfinite(err) and err <= tol * scale,
                   f"banded_apply disagrees with its twin: {row}")
-            row["ms"] = event_ms(lambda: bk.banded_apply(bands, x, dms,
-                                                         sign, b))
+            apply = bk.BandedApply(bands, dms, sign)
+            row["ms"] = event_ms(lambda: apply(x, b))
+            row["device_ms"] = device_ms(lambda: apply(x, b))
             row["plain_ms"] = event_ms(lambda: bk.banded_apply_plain(
                 bands, x, dms, sign, b))
+            # what the function needs: each band over its support, x and
+            # the output (and base) once
+            band_cells = sum(hi - lo for lo, hi in sup)
+            vecs = (3 if b is not None else 2) * 4 * cm.NC
+            row["bound_ms"], row["bound_by"] = bound(
+                (16 * band_cells + vecs) * it, 2 * 16 * band_cells, dname)
+            row["bound_all_cells_ms"], _ = bound(
+                (16 * bands.shape[0] * cm.NC + vecs) * it, 0, dname)
+            if name == "matvec":
+                row.update(library_matvec(ops, x, yp, tol))
             rows.append(row)
             print("banded_apply check", json.dumps(row), flush=True)
-    return rows
+
+        # the fused bsgs apply: = the sequence, ~ the twin
+        sweeps = solver.lin.pc_sweeps
+        fused = bk.BsgsApply(bands1, bandsn, dms_n, sweeps, ops.bl.support)
+        seq = bk.make_banded_bsgs_sequence(ops.Dinv, ops.DNbt,
+                                           ops.bl.offsets, sweeps)
+        twin = tb.make_banded_bsgs(ops.Dinv, ops.DNbt, ops.bl.offsets, sweeps)
+        f0, n0 = bk.bsgs_apply.launches, bk.banded_apply.launches
+        z = fused(x)
+        torch.cuda.synchronize()
+        check(bk.bsgs_apply.launches == f0 + 1
+              and bk.banded_apply.launches == n0,
+              "the fused bsgs apply is not one launch of its kernel")
+        zs = seq(x)
+        zp = twin(x)
+        err = float((z - zp).abs().max())
+        scale = float(zp.abs().max())
+        p = fused.plan
+        row = dict(path=path, NC=cm.NC, K=len(dms_n), sweeps=sweeps,
+                   dtype=dname, blocks=p.blocks, chunk=p.chunk,
+                   n_res=p.n_res, smem_bytes=p.smem_bytes,
+                   equal_to_sequence=bool(torch.equal(z, zs)),
+                   max_abs_err=err, max_abs_y=scale, tol=tol * scale)
+        check(row["equal_to_sequence"],
+              f"the fused bsgs apply differs from the sequence: {row}")
+        check(np.isfinite(err) and err <= tol * scale,
+              f"the fused bsgs apply disagrees with its twin: {row}")
+        row["ms"] = event_ms(lambda: fused(x))
+        row["sequence_ms"] = event_ms(lambda: seq(x))
+        row["plain_ms"] = event_ms(lambda: twin(x))
+        row["device_ms"] = device_ms(lambda: fused(x))
+        row["sequence_device_ms"] = device_ms(lambda: seq(x))
+        # what this operator needs: the bands over their supports only
+        band_cells = sum(hi - lo for lo, hi in ops.bl.support)
+        row["bound_ms"], row["bound_by"] = bound(
+            (16 * band_cells + (16 + 2 * 4) * cm.NC) * it,
+            2 * 16 * (cm.NC + sweeps * band_cells) + 4 * sweeps * cm.NC,
+            dname)
+        row["bound_all_cells_ms"], _ = bound(
+            ((1 + len(dms_n)) * 16 + 2 * 4) * cm.NC * it, 0, dname)
+        frows.append(row)
+        print("banded_bsgs check", json.dumps(row), flush=True)
+    return rows, frows
+
+
+def library_matvec(ops, x, want, tol) -> dict:
+    """library_ms of the matvec: one torch.sparse_bsr_tensor product on
+    the same operator and x, held to the twin's result; or the error that
+    shows no such call runs here."""
+    try:
+        mv = bsr_library_matvec(ops.D, ops.Bt, ops.bl.offsets)
+        y = mv(x)
+    except (RuntimeError, NotImplementedError) as e:
+        return dict(library_ms=None, library_error=str(e).splitlines()[0])
+    err = float((y - want).abs().max())
+    check(err <= tol * float(want.abs().max()),
+          f"the BSR library matvec disagrees with the twin: {err}")
+    return dict(library_ms=event_ms(lambda: mv(x)), library_max_abs_err=err)
 
 
 def rowset_checks(dev):
@@ -251,6 +394,7 @@ def rowset_checks(dev):
     FGMRES(90) basis, at f32 and f64: bit for bit, only row j written, in
     place."""
     import torch
+    from fvens_tpu_torch.cases.profile_step import device_ms
     from fvens_tpu_torch.solver import rowset_kernels as rk
 
     rng = np.random.default_rng(1)
@@ -275,7 +419,11 @@ def rowset_checks(dev):
                                                            V0[j + 1:]),
                   f"row_set wrote another row: {row}")
             row["ms"] = event_ms(lambda: rk.row_set(V, j, w, hn))
+            row["device_ms"] = device_ms(lambda: rk.row_set(V, j, w, hn),
+                                         n=200)
             row["plain_ms"] = event_ms(lambda: rk.rowset_plain(V, j, w, hn))
+            row["bound_ms"], row["bound_by"] = bound(
+                (2 * n + 1) * V.element_size(), n, row["dtype"])
             rows.append(row)
             print("row_set check", json.dumps(row), flush=True)
     return rows
@@ -304,17 +452,13 @@ def cylinder_path(dev):
     640x320. Returns (report, launches)."""
     import torch
     from fvens_tpu_torch.cases import bigmesh_case
-    from fvens_tpu_torch.solver import banded_kernels as bk
     from fvens_tpu_torch.solver import linear
-    from fvens_tpu_torch.solver import rowset_kernels as rk
 
     torch.cuda.synchronize()
-    bk.banded_apply.launches = 0
-    rk.row_set.launches = 0
+    zero_counts()
     u, rep = bigmesh_case.run_solve(dev)
     torch.cuda.synchronize()
-    launches = {"banded_apply": bk.banded_apply.launches,
-                "row_set": rk.row_set.launches}
+    launches = read_counts()
     print("cylinder solve", json.dumps(dict(rep, launches=launches)),
           flush=True)
     tpu = next(r for r in _load(TPU_BIGMESH)["runs"]
@@ -334,10 +478,73 @@ def cylinder_path(dev):
           and np.isfinite(rep["entropy"]), "non-finite cylinder solution")
     check(its > 0 and launches["row_set"] == its,
           f"{launches['row_set']} row_set launches for {its} basis appends")
-    check(launches["banded_apply"] >= 8 * its,
-          f"{launches['banded_apply']} banded_apply launches < 8 x {its} "
-          "Krylov iterations")
+    check(launches["banded_bsgs"] >= its,
+          f"{launches['banded_bsgs']} fused bsgs launches < {its} Krylov "
+          "iterations")
+    check(its <= launches["banded_apply"] < 2 * its,
+          f"{launches['banded_apply']} banded_apply launches for {its} "
+          "Krylov iterations: not one matvec each (plus one per cycle)")
     return rep, launches
+
+
+def zero_counts():
+    from fvens_tpu_torch.solver import banded_kernels as bk
+    from fvens_tpu_torch.solver import rowset_kernels as rk
+    bk.banded_apply.launches = bk.bsgs_apply.launches = 0
+    rk.row_set.launches = 0
+
+
+def read_counts() -> dict:
+    from fvens_tpu_torch.solver import banded_kernels as bk
+    from fvens_tpu_torch.solver import rowset_kernels as rk
+    return {"banded_apply": bk.banded_apply.launches,
+            "banded_bsgs": bk.bsgs_apply.launches,
+            "row_set": rk.row_set.launches}
+
+
+def fused_vs_sequence(dev):
+    """The first COMPARE_STEPS main steps of the 640x320 case, from the
+    starter's state, with the fused bsgs apply (the solver's) and with the
+    seven-launch sequence in its place: identical Krylov iterations and
+    residuals, step for step."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    from fvens_tpu_torch.solver import banded_kernels as bk
+
+    fcase, cm, u = bigmesh_case.build_case(dev, *bigmesh_case.BIGMESH)
+    u = fcase.execute_starter(cm, u)
+    hist = {}
+    for name in ("fused", "sequence"):
+        solver = fcase._make_solver(build_space(fcase.cfg), fcase.cfg.main)
+        if name == "sequence":
+            def seq_operators(ops, solver=solver):
+                mv, _ = type(solver)._linear_operators(solver, ops)
+                return mv, bk.make_banded_bsgs_sequence(
+                    ops.Dinv, ops.DNbt, ops.bl.offsets, solver.lin.pc_sweeps)
+            solver._linear_operators = seq_operators
+        zero_counts()
+        t0 = time.perf_counter()
+        _, info = solver.solve(cm, u, max_steps=COMPARE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_counts()
+        its = info.total_lin_iters
+        hist[name] = info.history
+        print(f"{name} pc: {COMPARE_STEPS} main steps, {its} Krylov "
+              f"iterations in {wall:.3f} s, launches {json.dumps(n)}, "
+              f"residuals {[h[2] for h in info.history]}", flush=True)
+        check(info.steps == COMPARE_STEPS and its > 0,
+              f"the {name} run took {info.steps} steps")
+        if name == "fused":
+            check(n["banded_bsgs"] >= its and n["banded_apply"] < 2 * its,
+                  f"the fused run did not take the fused kernel: {n}")
+        else:
+            check(n["banded_bsgs"] == 0 and n["banded_apply"] >= 8 * its,
+                  f"the sequence run did not take the sequence: {n}")
+    check(hist["fused"] == hist["sequence"],
+          "the fused and sequence runs differ: "
+          f"{hist['fused']} vs {hist['sequence']}")
 
 
 def cylinder_vs_record(dev):
@@ -405,17 +612,16 @@ def bench_path(dev):
     import torch
     from fvens_tpu_torch.cases.bench_case import (BENCH_MESH, MAX_STEPS,
                                                   TOL_ABS, run_solve)
-    from fvens_tpu_torch.solver import banded_kernels as bk
 
     solve, cm = run_solve(dev)
     print(f"mesh: naca0012_omesh{BENCH_MESH}, {cm.n_cells} cells", flush=True)
     torch.cuda.synchronize()
-    bk.banded_apply.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     u, info = solve(max_steps=MAX_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bk.banded_apply.launches
+    launches = read_counts()
     res = [h[2] for h in info.history]
     solve_rec = dict(converged=info.converged, steps=info.steps,
                      step_calls=len(info.step_times),
@@ -441,10 +647,10 @@ def bench_path(dev):
     check(u.shape == (cm.NC, 4) and u.dtype == torch.float64
           and bool(torch.isfinite(u).all()), "non-finite solution")
     check(all(np.isfinite(r) for r in res), "non-finite accepted residual")
-    check(info.total_lin_iters > 0
-          and launches >= 8 * info.total_lin_iters,
-          f"{launches} kernel launches < 8 x {info.total_lin_iters} "
-          "Krylov iterations")
+    its = info.total_lin_iters
+    check(its > 0 and launches["banded_apply"] >= its
+          and launches["banded_bsgs"] >= its,
+          f"kernel launches {launches} for {its} Krylov iterations")
     return cm
 
 
@@ -452,15 +658,14 @@ def bench_first_order(dev, cm):
     """The first-order (starter) form of the bench solve converges."""
     import torch
     from fvens_tpu_torch.cases.bench_case import MAX_STEPS, TOL_ABS, run_solve
-    from fvens_tpu_torch.solver import banded_kernels as bk
 
     solve1, _ = run_solve(dev, order2=False)
-    n0 = bk.banded_apply.launches
+    zero_counts()
     t0 = time.perf_counter()
     u1, info1 = solve1(max_steps=MAX_STEPS)
     torch.cuda.synchronize()
     wall1 = time.perf_counter() - t0
-    launches1 = bk.banded_apply.launches - n0
+    launches1 = read_counts()
     ref1 = jax_record(order2=False, mixed=True)
     print("first-order solve", json.dumps(dict(
         converged=info1.converged, steps=info1.steps,
@@ -476,9 +681,11 @@ def bench_first_order(dev, cm):
           and abs(info1.total_lin_iters - ref1["krylov_iters"])
           <= 0.02 * ref1["krylov_iters"],
           "the first-order solve departs from the JAX package's")
-    check(launches1 >= 8 * info1.total_lin_iters,
-          f"{launches1} kernel launches < 8 x {info1.total_lin_iters} "
-          "Krylov iterations in the first-order solve")
+    its1 = info1.total_lin_iters
+    check(launches1["banded_apply"] >= its1
+          and launches1["banded_bsgs"] >= its1,
+          f"kernel launches {launches1} for {its1} Krylov iterations in the "
+          "first-order solve")
 
 
 def bench_twins(dev, cm):
@@ -556,12 +763,17 @@ def main() -> int:
     with phase("build"):
         build_kernels()
     with phase("kernel checks"):
-        brows = banded_checks(dev, "cylinder 640x320", cylinder_solvers(dev))
-        brows += banded_checks(dev, "bench 160x80",
+        brows, frows = banded_checks(dev, "cylinder 640x320",
+                                     cylinder_solvers(dev))
+        b2, f2 = banded_checks(dev, "bench 160x80",
                                lambda mixed: bench_solver(dev, mixed=mixed))
+        brows, frows = brows + b2, frows + f2
         rrows = rowset_checks(dev)
     with phase("cylinder 640x320 solve (warm-up + timed)"):
         rep, launches = cylinder_path(dev)
+    with phase(f"cylinder 640x320: {COMPARE_STEPS} main steps, fused pc vs "
+               "the sequence"):
+        fused_vs_sequence(dev)
     with phase(f"cylinder {CHECK_MESH[0]}x{CHECK_MESH[1]} vs the JAX record"):
         cylinder_vs_record(dev)
     with phase("bench 600-step solve"):
@@ -573,19 +785,35 @@ def main() -> int:
     with phase("small solves vs the JAX package"):
         small_solves(dev)
 
-    sweep = next(r for r in brows if r["op"] == "sweep"
-                 and r["dtype"] == "float32" and r["path"].startswith("cyl"))
-    rs32 = next(r for r in rrows if r["n"] == ROWSET_SIZES[0]
-                and r["dtype"] == "float32")
+    def main_row(rows, **want):
+        return next(r for r in rows if r["dtype"] == "float32"
+                    and r.get("path", "cyl").startswith("cyl")
+                    and all(r[k] == v for k, v in want.items()))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    mv = main_row(brows, op="matvec")
+    pc = main_row(frows)
+    rs = main_row(rrows, n=ROWSET_SIZES[0])
     measured = {
         "banded_apply": dict(
             max_abs_err=max(r["max_abs_err"] for r in brows),
-            ms=sweep["ms"], plain_ms=sweep["plain_ms"],
-            shape=f"f32 bsgs sweep, K=6, NC={sweep['NC']}"),
+            library_ms=mv.get("library_ms"),
+            **{k: mv[k] for k in keys},
+            shape=f"f32 matvec, K=7, NC={mv['NC']}",
+            library=("torch.sparse_bsr_tensor @ x" if mv.get("library_ms")
+                     else mv.get("library_error"))),
+        "banded_bsgs": dict(
+            max_abs_err=max(r["max_abs_err"] for r in frows),
+            library_ms=None, **{k: pc[k] for k in keys},
+            sequence_ms=pc["sequence_ms"],
+            sequence_device_ms=pc["sequence_device_ms"], n_res=pc["n_res"],
+            shape=f"f32 bsgs apply, K={pc['K']}, {pc['sweeps']} sweeps, "
+                  f"NC={pc['NC']}",
+            library="no single PyTorch call computes the sweeps"),
         "row_set": dict(
             max_abs_err=max(r["max_abs_err"] for r in rrows),
-            ms=rs32["ms"], plain_ms=rs32["plain_ms"],
-            shape=f"f32 row {rs32['j']} of a (96, {rs32['n']}) basis"),
+            library_ms=None, **{k: rs[k] for k in keys},
+            shape=f"f32 row {rs['j']} of a (96, {rs['n']}) basis",
+            library="no single PyTorch call: w / clamp_min(hn) is two"),
     }
     print("phases", json.dumps(PHASES), flush=True)
     print(json.dumps({"kernels": [

@@ -49,9 +49,12 @@ def find_nvcc() -> str:
 
 def build_cuda_library(name: str, sources: list) -> tuple:
     """Compile `sources` (paths under csrc/) into lib<name>-<hash>.so and
-    load it. Returns (ctypes.CDLL, BuildInfo)."""
+    load it. Returns (ctypes.CDLL, BuildInfo). The hash covers the sources
+    and every header under csrc/, which a source may include."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                     if f.endswith(".cuh"))
+    for src in [*sources, *headers]:
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -17,7 +17,16 @@ at that state:
      solve and the whole step. Where gmres runs blocked, also one blocked
      MGS pass over the mean number of filled basis rows of that solve,
      one basis append (row_set) and one host copy of two norms, median
-     of 20;
+     of 20. Through the kernels it also times the preconditioner apply
+     three ways, in turns: the fused bsgs kernel (the solver's), the
+     seven-launch banded_apply sequence and the plain twin; each by the
+     host clock per call, and the kernels by their device time per apply
+     (device_ms: applies queued back to back behind a device-side sleep,
+     between CUDA events); the fused kernel (with its own plan, and with no
+     cell resident) and the sequence sweep by sweep (device time at one
+     sweep and at the solver's count: the first sweep with D^-1 v, and a
+     later sweep as the difference over the rest); and the whole step with
+     the fused apply and with the sequence, in turns;
   2. traces one step with torch.profiler and prints the device time by
      kernel and the device's busy time (the sum over device events, so
      the operators that launched them are not counted twice) against the
@@ -38,6 +47,7 @@ from ..solver import banded_kernels as bk
 from ..solver import jacobian as jacmod
 from ..solver import linear
 from ..solver import rowset_kernels as rk
+from ..solver.banded import make_banded_bsgs
 from ..solver.linear import gmres
 from ..solver.steady import banded_operators
 from . import bigmesh_case
@@ -70,6 +80,39 @@ def sync_ms(dev, fn, reps=5):
     return ts[len(ts) // 2] * 1e3, out
 
 
+def device_ms(fn, n=50):
+    """Device time per call of fn() in ms: n calls queued behind a
+    device-side sleep that outlasts their enqueueing, so that they run back
+    to back, timed by CUDA events around them. Raises if the sleep ended
+    before the host had queued them all, three times over."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    # a sleep of about twice that, at ~2 GHz, and at least 10 ms
+    cycles = int(max((time.perf_counter() - t0) * 4e9, 2e7))
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        slept_ms = ev[0].elapsed_time(ev[1])
+        if queued_ms < slept_ms:
+            return ev[1].elapsed_time(ev[2]) / n
+        cycles *= 4
+    raise RuntimeError(f"device_ms: the host took {queued_ms:.3f} ms to queue "
+                       f"{n} calls behind a {slept_ms:.3f} ms device sleep: "
+                       "the calls wait for the device")
+
+
 def _device_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0))
@@ -92,6 +135,74 @@ def _warm_state(dev, case: str, mesh, warm: int, pallas: bool):
     return solver, cm, u, info
 
 
+def _sequence_operators(solver):
+    """A solver's _linear_operators with the seven-launch banded_apply
+    sequence as the preconditioner."""
+    base = type(solver)._linear_operators
+
+    def ops_fn(ops):
+        mv, _ = base(solver, ops)
+        return mv, _make_pc(solver, ops, "sequence")
+    return ops_fn
+
+
+def _make_pc(solver, ops, name: str):
+    sweeps, offs = solver.lin.pc_sweeps, ops.bl.offsets
+    if name == "fused":
+        return bk.make_banded_bsgs_kernel(ops.Dinv, ops.DNbt, offs, sweeps,
+                                          ops.bl.support)
+    if name == "sequence":
+        return bk.make_banded_bsgs_sequence(ops.Dinv, ops.DNbt, offs, sweeps)
+    return make_banded_bsgs(ops.Dinv, ops.DNbt, offs, sweeps)
+
+
+def _pc_variants(dev, solver, ops, v):
+    """The pc apply three ways, in turns (fused, sequence, twin, then
+    back): host ms per call and, but for the twin, device ms per apply,
+    both rounds; then the kernels sweep by sweep."""
+    rec = {}
+    names = ("fused", "sequence", "twin")
+    for order in (names, names[::-1]):
+        for name in order:
+            pc = _make_pc(solver, ops, name)
+            host, _ = sync_ms(dev, lambda: pc(v), 50)
+            rec.setdefault(f"pc_{name}_ms", []).append(host)
+            if name != "twin":     # ~200 launches a call: more than the
+                rec.setdefault(    # device queue holds behind a sleep
+                    f"pc_{name}_device_ms", []).append(device_ms(lambda: pc(v)))
+    rec["pc_sweeps"] = _pc_sweep_times(solver, ops, v)
+    return rec
+
+
+def _pc_sweep_times(solver, ops, v):
+    """Device ms of the fused kernel with its own plan ("fused") and with
+    no cell resident ("fused_none_resident"), and of the sequence, at one
+    sweep and at the solver's S: the first sweep with D^-1 v, and a later
+    sweep, (t_S - t_1) / (S - 1). Each fused result is held equal to the
+    sequence's."""
+    S = solver.lin.pc_sweeps
+    (dinv, _), (dn, dms) = bk.bsgs_bands(ops.Dinv, ops.DNbt, ops.bl.offsets)
+    seq = {s: bk.bsgs_sequence(dinv, dn, dms, s) for s in (1, S)}
+    rec = {}
+    for name, kw in (("fused", {}), ("fused_none_resident",
+                                     dict(smem_bytes=0)), ("sequence", None)):
+        t = {}
+        for s in (1, S):
+            if kw is None:
+                app = seq[s]
+            else:
+                app = bk.BsgsApply(dinv, dn, dms, s, ops.bl.support, **kw)
+                if not torch.equal(app(v), seq[s](v)):
+                    raise RuntimeError(f"{name} differs from the sequence")
+            t[s] = device_ms(lambda: app(v))
+        rec[name] = dict(first_ms=t[1], total_ms=t[S],
+                         later_sweep_ms=(t[S] - t[1]) / max(S - 1, 1))
+        if kw is not None:
+            rec[name]["n_res"] = app.plan.n_res
+            rec[name]["chunk"] = app.plan.chunk
+    return rec
+
+
 def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
     """Phase times and a one-step trace of the `case` solve ("bench":
     naca0012_omesh `mesh`; "cylinder": cylinder_omesh `mesh`, main solve)
@@ -112,6 +223,8 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
     mv, pc = solver._linear_operators(ops)
     rec["matvec_ms"], _ = sync_ms(dev, lambda: mv(lrhs), 50)
     rec["pc_ms"], _ = sync_ms(dev, lambda: pc(lrhs), 50)
+    if pallas and dev.type == "cuda":
+        rec.update(_pc_variants(dev, solver, ops, lrhs))
     rec["gmres_ms"], (_, its, _) = sync_ms(dev, lambda: gmres(
         mv, lrhs, torch.zeros_like(lrhs), pc, restart=solver.lin.restart,
         maxiter=solver.lin.maxiter, rtol=rtol), 3)
@@ -138,12 +251,23 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
             dev, lambda: torch.stack([hn, hn]).cpu(), 20)
     rec["step_ms"], _ = sync_ms(dev, lambda: solver._step(
         cm, u, cfl, rtol, lmesh=lmesh, bl=bl), 3)
+    if pallas and dev.type == "cuda":
+        # the step with each pc, in turns (fused, sequence, then back),
+        # median of 3 each
+        for name in ("fused", "sequence", "sequence", "fused"):
+            if name == "sequence":
+                solver._linear_operators = _sequence_operators(solver)
+            ms, _ = sync_ms(dev, lambda: solver._step(
+                cm, u, cfl, rtol, lmesh=lmesh, bl=bl), 3)
+            rec.setdefault(f"step_{name}_ms", []).append(ms)
+            solver.__dict__.pop("_linear_operators", None)
     print("phases", json.dumps(rec), flush=True)
 
     from torch.profiler import ProfilerActivity
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if dev.type == "cuda" else [])
     n0, r0 = bk.banded_apply.launches, rk.row_set.launches
+    f0 = bk.bsgs_apply.launches
     _sync(dev)
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
@@ -156,6 +280,7 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
         case=case, pallas=pallas, traced_wall_ms=wall * 1e3,
         device_busy_ms=sum(_device_us(e) for e in ka) / 1e3,
         kernel_launches=bk.banded_apply.launches - n0,
+        bsgs_launches=bk.bsgs_apply.launches - f0,
         row_set_launches=rk.row_set.launches - r0,
         top_device_ms=[(e.key[:60], e.count, _device_us(e) / 1e3)
                        for e in ka[:15]])), flush=True)

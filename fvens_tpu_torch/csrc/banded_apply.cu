@@ -22,20 +22,21 @@
 // vector entries per cell; at the 12,800-cell bench mesh all its operands
 // (~11.5 MB in f32) sit in the 50 MB L2, so a launch is short and the
 // launch latency, not HBM bandwidth, sets the pace. The design is the
-// simplest right one: one thread per cell, one launch per apply.
+// simplest right one: one thread per cell, one launch per apply. The cell's
+// arithmetic is banded_block.cuh's, which the fused bsgs kernel
+// (banded_bsgs.cu) shares, so the two agree to the bit.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "banded_block.cuh"
+
 namespace {
 
-constexpr int kV = 4;           // block size (NVARS)
-constexpr int kMaxBands = 8;
+using fvens::kMaxBands;
+using fvens::kV;
+using fvens::Offsets;
 constexpr int kThreads = 128;
-
-struct Offsets {
-  int d[kMaxBands];
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -44,33 +45,14 @@ banded_apply_kernel(const T* __restrict__ B, const T* __restrict__ x,
                     int nc, int nbands, Offsets off, T sign) {
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= nc) return;
-  const int64_t ncl = nc;
-  T acc[kV] = {T(0), T(0), T(0), T(0)};
-  for (int k = 0; k < nbands; ++k) {
-    int r = (c + off.d[k]) % nc;
-    if (r < 0) r += nc;
-    const T* xr = x + static_cast<int64_t>(r) * kV;
-    T xv[kV];
-#pragma unroll
-    for (int j = 0; j < kV; ++j) xv[j] = __ldg(xr + j);
-    const T* Bk = B + static_cast<int64_t>(k) * kV * kV * ncl + c;
-#pragma unroll
-    for (int i = 0; i < kV; ++i) {
-#pragma unroll
-      for (int j = 0; j < kV; ++j) {
-        acc[i] += __ldg(Bk + (i * kV + j) * ncl) * xv[j];
-      }
-    }
-  }
+  T y[kV];
+  fvens::banded_block_apply<T>(
+      fvens::Planes<T, fvens::LoadReadOnly<T>>{B + c, nc}, x, nc, c, nbands,
+      off, base == nullptr ? nullptr : base + static_cast<int64_t>(c) * kV,
+      sign, fvens::LoadReadOnly<T>(), y);
   T* o = out + static_cast<int64_t>(c) * kV;
-  if (base != nullptr) {
-    const T* b = base + static_cast<int64_t>(c) * kV;
 #pragma unroll
-    for (int i = 0; i < kV; ++i) o[i] = b[i] + sign * acc[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < kV; ++i) o[i] = sign * acc[i];
-  }
+  for (int i = 0; i < kV; ++i) o[i] = y[i];
 }
 
 template <typename T>

@@ -36,10 +36,14 @@ class BandedStructure:
               (0 where the band is absent; see valid).
     valid:    (K, NC) int8 — 1 where cell c really has a neighbour at
               offset d_k (selected blocks are multiplied by this).
+    support:  K (lo, hi) Python int pairs: band k's valid cells all lie in
+              [lo, hi), so its blocks are exactly zero outside (on the
+              O-meshes the seam bands hold one ring of cells).
     """
     offsets: tuple
     slot_sel: torch.Tensor
     valid: torch.Tensor
+    support: tuple
 
 
 def banded_structure(mesh, max_bands: int = 8):
@@ -71,10 +75,16 @@ def banded_structure(mesh, max_bands: int = 8):
     # every valid slot must land in exactly one band
     if int(valid.sum()) != int(mask.sum()):
         return None
+    support = []
+    for k in range(len(offsets)):
+        cells = np.flatnonzero(valid[k])
+        support.append((int(cells[0]), int(cells[-1]) + 1) if len(cells)
+                       else (0, 0))
     dev = mesh.cell_nbrs.device
     return BandedStructure(offsets=offsets,
                            slot_sel=torch.from_numpy(slot_sel).to(dev),
-                           valid=torch.from_numpy(valid).to(dev))
+                           valid=torch.from_numpy(valid).to(dev),
+                           support=tuple(support))
 
 
 def banded_blocks(bl: BandedStructure, N):
@@ -155,12 +165,19 @@ def make_banded_bsgs(Dinv, DNbt, offsets, sweeps: int):
     dms = _norm_offsets(offsets, Dinv.shape[0])
 
     def pc(v):
-        dvt = _block_mv(Dt, v.T)                      # (V, NC)
-        z = dvt
-        for _ in range(sweeps):
-            acc = dvt
-            for k, d in enumerate(dms):
-                acc = acc - _block_mv(DNbt[k], _shift(z, d))
-            z = acc
-        return z.T
+        return bsgs_sweeps(Dt, DNbt, dms, sweeps, v)
     return pc
+
+
+def bsgs_sweeps(Dt, DNbt, dms, sweeps: int, v):
+    """z = D^-1 v, then `sweeps` times z <- D^-1 v - sum_k (D^-1 N)_k z_(+d_k),
+    with Dt (V, V, NC), DNbt (K, V, V, NC), normalized shifts dms and
+    v (NC, V); returns z (NC, V) (a transposed view)."""
+    dvt = _block_mv(Dt, v.T)                          # (V, NC)
+    z = dvt
+    for _ in range(sweeps):
+        acc = dvt
+        for k, d in enumerate(dms):
+            acc = acc - _block_mv(DNbt[k], _shift(z, d))
+        z = acc
+    return z.T

@@ -1,62 +1,153 @@
-"""The banded block apply as a hand-written CUDA kernel for Hopper.
+"""The banded block apply and the fused bsgs apply as hand-written CUDA
+kernels for Hopper.
 
-Replaces the TPU kernel `_banded_apply` (body `_apply_kernel`) in the JAX
+Replace the TPU kernel `_banded_apply` (body `_apply_kernel`) in the JAX
 package's solver/pallas_banded.py, and its two operator builders
 `make_banded_matvec_pallas` / `make_banded_bsgs_pallas`, with the same
-signatures. The kernel (csrc/banded_apply.cu) computes
+signatures. Two kernels share one cell's arithmetic (csrc/banded_block.cuh):
 
-    out[c] = base[c] + sign * sum_k B_k[:, :, c] . x[(c + d_k) mod NC]
+  - csrc/banded_apply.cu, one launch per apply,
 
-one thread per cell, with the band blocks in banded_blocks' (K, 4, 4, NC)
-cell-minor layout and the vectors in the solver's (NC, 4) layout. What
-bounds it on the H100: at the 12,800-cell bench mesh every operand
-(~11.5 MB in f32) fits the 50 MB L2, so each apply is a few microseconds of
-work and the launch latency sets the pace; at large meshes it streams K*16
-block entries per cell from HBM. The design ports what the TPU kernel
-computes, not its DMA schedule: no wrap-padded copy of x (a non-negative
-modulo finds the shifted row), no transposes, no tile-size gate — any NC,
-f32 and f64, fully band-covered meshes only. One launch per apply; the
-bsgs sweeps are a host loop (fusing them is later, measured work).
+        out[c] = base[c] + sign * sum_k B_k[:, :, c] . x[(c + d_k) mod NC]
 
-`banded_apply` launches the kernel for CUDA tensors and raises if the
-launch fails; for CPU tensors it takes `banded_apply_plain`, the same
-function in plain PyTorch. `banded_apply.launches` counts kernel launches.
+    one thread per cell, with the band blocks in banded_blocks' (K, 4, 4, NC)
+    cell-minor layout and the vectors in the solver's (NC, 4) layout. It is
+    the matvec (the diagonal joins as the d = 0 band). No wrap-padded copy
+    of x (a non-negative modulo finds the shifted row), no transposes, no
+    tile-size gate: any NC, f32 and f64, fully band-covered meshes only;
+  - csrc/banded_bsgs.cu, the whole bsgs preconditioner apply (D^-1 v, then
+    `sweeps` damped block-Jacobi sweeps) in ONE persistent cooperative
+    launch that keeps as much of D^-1 N in shared memory across the sweeps
+    as the card allows (bsgs_launch_plan) and skips each band outside the
+    cells where it is nonzero (BandedStructure.support). It equals the
+    seven-launch sequence of banded_apply (make_banded_bsgs_sequence) value
+    for value: the same products summed in the same order, less the
+    skipped zero products.
+
+`banded_apply` and `bsgs_apply` launch their kernel for CUDA tensors and
+raise if the launch fails; for CPU tensors they take their plain PyTorch
+twins (`banded_apply_plain`, `bsgs_apply_plain`). `banded_apply.launches`
+and `bsgs_apply.launches` count kernel launches. The operator builders
+check the operands, look up the function and build the launch arguments
+once per Newton step, so that a call is one ctypes call and a torch.empty.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 
 import torch
 
 from .._build import CSRC_DIR, build_cuda_library
-from .banded import _block_mv, _norm_offsets, _shift
+from .banded import _block_mv, _norm_offsets, _shift, bsgs_sweeps
 
 V = 4                      # block size (NVARS)
-MAX_BANDS = 8              # the kernel's offset table size
+MAX_BANDS = 8              # the kernels' offset table size
+DTYPES = (torch.float32, torch.float64)
 
-_LIB = None                # (ctypes.CDLL, BuildInfo), built at first use
+_LIBS = {}                 # source name: (ctypes.CDLL, BuildInfo)
+_LIMITS = {}               # device index: the bsgs kernel's device limits
+
+
+class BsgsArgs(ctypes.Structure):
+    """The fused kernel's launch arguments; mirrors `BsgsArgs` in
+    csrc/banded_bsgs.cu."""
+    _fields_ = [("dinv", ctypes.c_void_p), ("dn", ctypes.c_void_p),
+                ("dv", ctypes.c_void_p), ("z", ctypes.c_void_p),
+                ("device", ctypes.c_int), ("nc", ctypes.c_int),
+                ("nbands", ctypes.c_int), ("sweeps", ctypes.c_int),
+                ("blocks", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("n_res", ctypes.c_int), ("smem_bytes", ctypes.c_int),
+                ("dense", ctypes.c_int),
+                ("offsets", ctypes.c_int * MAX_BANDS),
+                ("lo", ctypes.c_int * MAX_BANDS),
+                ("hi", ctypes.c_int * MAX_BANDS)]
+
+
+def _load(name: str):
+    """Build (at first use) and load csrc/<name>.cu; returns the CDLL."""
+    if name not in _LIBS:
+        lib, info = build_cuda_library(
+            name, [os.path.join(CSRC_DIR, f"{name}.cu")])
+        if name == "banded_apply":
+            for fn in (lib.fvens_banded_apply_f32, lib.fvens_banded_apply_f64):
+                fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_void_p, ctypes.c_double,
+                               ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            lib.fvens_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.fvens_cuda_error_string.restype = ctypes.c_char_p
+        else:
+            for fn in (lib.fvens_banded_bsgs_f32, lib.fvens_banded_bsgs_f64):
+                fn.argtypes = [ctypes.POINTER(BsgsArgs), ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            lib.fvens_bsgs_device_limits.argtypes = [ctypes.c_int,
+                                                     ctypes.c_void_p]
+            lib.fvens_bsgs_device_limits.restype = ctypes.c_int
+            lib.fvens_bsgs_error_string.argtypes = [ctypes.c_int]
+            lib.fvens_bsgs_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = (lib, info)
+    return _LIBS[name][0]
 
 
 def load_library():
     """Build (at first use) and load csrc/banded_apply.cu. Returns the
     BuildInfo (library path, nvcc seconds, ptxas log)."""
-    global _LIB
-    if _LIB is None:
-        src = os.path.join(CSRC_DIR, "banded_apply.cu")
-        lib, info = build_cuda_library("banded_apply", [src])
-        for fn in (lib.fvens_banded_apply_f32, lib.fvens_banded_apply_f64):
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p, ctypes.c_double,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.fvens_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.fvens_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = (lib, info)
-    return _LIB[1]
+    _load("banded_apply")
+    return _LIBS["banded_apply"][1]
 
+
+def load_bsgs_library():
+    """Build (at first use) and load csrc/banded_bsgs.cu. Returns the
+    BuildInfo."""
+    _load("banded_bsgs")
+    return _LIBS["banded_bsgs"][1]
+
+
+def _raise_launch(what: str, lib, errfn: str, err: int):
+    msg = getattr(lib, errfn)(err).decode()
+    raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {err})")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_ops(what: str, tensors, dtype, device):
+    if dtype not in DTYPES:
+        raise TypeError(f"{what} takes float32/float64, got {dtype}")
+    if any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{what}: operands must share one dtype")
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{what}: operands must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: operands must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+
+
+def _check_bands(bands, dms):
+    if bands.dim() != 4 or tuple(bands.shape[1:3]) != (V, V):
+        raise ValueError(f"bands must be (K, {V}, {V}, NC), got "
+                         f"{tuple(bands.shape)}")
+    K = bands.shape[0]
+    if not 1 <= K <= MAX_BANDS or len(dms) != K:
+        raise ValueError(f"need 1 <= K <= {MAX_BANDS} bands and one shift "
+                         f"each, got K={K}, {len(dms)} shifts")
+
+
+def _check_vec(name, t, NC):
+    if tuple(t.shape) != (NC, V):
+        raise ValueError(f"{name} must be ({NC}, {V}), got {tuple(t.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# banded_apply: one launch per apply
+# ---------------------------------------------------------------------------
 
 def banded_apply_plain(bands, x, dms, sign=1.0, base=None):
     """Plain PyTorch twin of the kernel: bands (K, V, V, NC), x (NC, V),
@@ -72,58 +163,228 @@ def banded_apply_plain(bands, x, dms, sign=1.0, base=None):
     return y.contiguous()
 
 
-def _check(bands, x, dms, base):
-    if bands.dim() != 4 or tuple(bands.shape[1:3]) != (V, V):
-        raise ValueError(f"bands must be (K, {V}, {V}, NC), got "
-                         f"{tuple(bands.shape)}")
-    K, NC = bands.shape[0], bands.shape[3]
-    if not 1 <= K <= MAX_BANDS or len(dms) != K:
-        raise ValueError(f"need 1 <= K <= {MAX_BANDS} bands and one shift "
-                         f"each, got K={K}, {len(dms)} shifts")
-    if tuple(x.shape) != (NC, V):
-        raise ValueError(f"x must be ({NC}, {V}), got {tuple(x.shape)}")
-    ops = [bands, x] + ([base] if base is not None else [])
-    if base is not None and tuple(base.shape) != (NC, V):
-        raise ValueError(f"base must be ({NC}, {V}), got "
-                         f"{tuple(base.shape)}")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"banded_apply takes float32/float64, got {x.dtype}")
-    if any(t.dtype != x.dtype for t in ops):
-        raise TypeError("bands, x and base must share one dtype")
-    if any(t.device != x.device for t in ops):
-        raise ValueError("bands, x and base must be on one device")
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("bands, x and base must be contiguous")
+class BandedApply:
+    """out = base + sign * sum_k B_k x_(+d_k) with bands and shifts fixed:
+    the operands are checked and the launch arguments built once; a call
+    checks x (and base) and launches, or on CPU tensors runs the twin."""
+
+    def __init__(self, bands, dms, sign=1.0):
+        _check_bands(bands, dms)
+        _check_ops("banded_apply", [bands], bands.dtype, bands.device)
+        self.bands, self.dms, self.sign = bands, tuple(dms), float(sign)
+        self.NC, self.dtype, self.device = (bands.shape[3], bands.dtype,
+                                            bands.device)
+        if self.device.type == "cuda":
+            lib = _load("banded_apply")
+            self._fn = (lib.fvens_banded_apply_f32
+                        if self.dtype == torch.float32
+                        else lib.fvens_banded_apply_f64)
+            self._offs = (ctypes.c_int * MAX_BANDS)(*self.dms)
+            self._offs_ptr = ctypes.addressof(self._offs)
+
+    def __call__(self, x, base=None):
+        _check_vec("x", x, self.NC)
+        ops = [x] if base is None else [x, base]
+        if base is not None:
+            _check_vec("base", base, self.NC)
+        _check_ops("banded_apply", ops, self.dtype, self.device)
+        if self.device.type == "cpu":
+            return banded_apply_plain(self.bands, x, self.dms, self.sign, base)
+        out = torch.empty_like(x)
+        err = self._fn(self.device.index, self.bands.data_ptr(), x.data_ptr(),
+                       None if base is None else base.data_ptr(),
+                       out.data_ptr(), self.NC, len(self.dms), self._offs_ptr,
+                       self.sign, _stream(self.device))
+        if err != 0:
+            _raise_launch("banded_apply", _LIBS["banded_apply"][0],
+                          "fvens_cuda_error_string", err)
+        banded_apply.launches += 1
+        return out
 
 
 def banded_apply(bands, x, dms, sign=1.0, base=None):
     """out = base + sign * sum_k B_k x_(+d_k): the CUDA kernel on a CUDA
     tensor, its plain twin on a CPU tensor. Returns a new (NC, V) tensor."""
-    _check(bands, x, dms, base)
-    if x.device.type == "cpu":
-        return banded_apply_plain(bands, x, dms, sign, base)
-    if x.device.type != "cuda":
-        raise ValueError(f"banded_apply runs on cuda or cpu, not {x.device}")
-    load_library()
-    lib = _LIB[0]
-    fn = (lib.fvens_banded_apply_f32 if x.dtype == torch.float32
-          else lib.fvens_banded_apply_f64)
-    out = torch.empty_like(x)
-    offs = (ctypes.c_int * MAX_BANDS)(*dms)
-    err = fn(x.device.index, bands.data_ptr(), x.data_ptr(),
-             None if base is None else base.data_ptr(), out.data_ptr(),
-             bands.shape[3], bands.shape[0], ctypes.addressof(offs),
-             float(sign), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = lib.fvens_cuda_error_string(err).decode()
-        raise RuntimeError(f"banded_apply kernel launch failed: {msg} "
-                           f"(cudaError {err})")
-    banded_apply.launches += 1
-    return out
+    if x.dtype != bands.dtype:
+        raise TypeError("bands, x and base must share one dtype")
+    return BandedApply(bands, dms, sign)(x, base)
 
 
 banded_apply.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# bsgs_apply: the whole preconditioner apply in one launch
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BsgsPlan:
+    """How the fused kernel splits NC cells: block b owns cells
+    [b * chunk, min((b + 1) * chunk, NC)); the first n_res cells of each
+    block keep their bands and base in smem_bytes of shared memory."""
+    blocks: int
+    chunk: int
+    n_res: int
+    smem_bytes: int
+
+
+def bsgs_cell_bytes(K: int, dtype) -> int:
+    """Shared memory one resident cell takes: the 16 entries of each of the
+    K bands kept there, and its 4 entries of D^-1 v."""
+    return (K * V * V + V) * torch.empty((), dtype=dtype).element_size()
+
+
+def bsgs_dense_bands(support, NC: int) -> tuple:
+    """Which bands the fused kernel keeps in shared memory: those whose
+    support spans more than half of the cells (on the O-meshes all but the
+    two seam bands, which hold one ring of cells each)."""
+    return tuple(2 * (hi - lo) > NC for lo, hi in support)
+
+
+def bsgs_launch_plan(NC: int, K: int, dtype, smem_bytes: int,
+                     n_blocks: int) -> BsgsPlan:
+    """The fused kernel's grid for NC cells with K bands kept in shared
+    memory: at most n_blocks blocks (one per SM) of equal cell ranges, each
+    keeping as many of its cells resident as smem_bytes of shared memory
+    hold."""
+    if NC < 1 or not 0 <= K <= MAX_BANDS or n_blocks < 1 or smem_bytes < 0:
+        raise ValueError(f"no plan for NC={NC}, K={K}, n_blocks={n_blocks}, "
+                         f"smem_bytes={smem_bytes}")
+    chunk = -(-NC // n_blocks)
+    per_cell = bsgs_cell_bytes(K, dtype)
+    n_res = min(chunk, smem_bytes // per_cell)
+    return BsgsPlan(blocks=-(-NC // chunk), chunk=chunk, n_res=n_res,
+                    smem_bytes=n_res * per_cell)
+
+
+def bsgs_device_limits(device) -> dict:
+    """SMs, shared memory per block and per SM, the fused kernel's threads
+    per block and blocks per SM, and the plan's default grid and shared
+    memory per block, read from the card once."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _LIMITS:
+        lib = _load("banded_bsgs")
+        out = (ctypes.c_int * 6)()
+        err = lib.fvens_bsgs_device_limits(idx, ctypes.addressof(out))
+        if err != 0:
+            _raise_launch("banded_bsgs", lib, "fvens_bsgs_error_string", err)
+        lim = dict(zip(("sms", "smem_optin", "smem_per_sm", "smem_reserved",
+                        "threads", "blocks_per_sm"), out))
+        # the plan's defaults: every block slot of every SM, each with its
+        # share of the SM's shared memory
+        lim["n_blocks"] = lim["sms"] * lim["blocks_per_sm"]
+        lim["smem_per_block"] = min(
+            lim["smem_optin"],
+            lim["smem_per_sm"] // lim["blocks_per_sm"] - lim["smem_reserved"])
+        _LIMITS[idx] = lim
+    return _LIMITS[idx]
+
+
+def bsgs_apply_plain(dinv, dn, dms, sweeps, v):
+    """Plain PyTorch twin of the fused kernel: banded.make_banded_bsgs's
+    arithmetic on dinv (1, V, V, NC), dn (K, V, V, NC), v (NC, V)."""
+    return bsgs_sweeps(dinv[0], dn, dms, sweeps, v).contiguous()
+
+
+def _check_bsgs(dinv, dn, dms, sweeps, support):
+    _check_bands(dn, dms)
+    NC = dn.shape[3]
+    if support is not None and (
+            len(support) != len(dms)
+            or not all(0 <= lo <= hi <= NC for lo, hi in support)):
+        raise ValueError(f"support must be {len(dms)} (lo, hi) cell ranges "
+                         f"within [0, {NC}], got {support!r}")
+    if tuple(dinv.shape) != (1, V, V, NC):
+        raise ValueError(f"dinv must be (1, {V}, {V}, {NC}), got "
+                         f"{tuple(dinv.shape)}")
+    if not isinstance(sweeps, int) or sweeps < 0:
+        raise ValueError(f"sweeps must be an int >= 0, got {sweeps!r}")
+    _check_ops("bsgs_apply", [dinv, dn], dn.dtype, dn.device)
+
+
+class BsgsApply:
+    """The bsgs apply with D^-1, D^-1 N, shifts and sweeps fixed: operands
+    checked, launch planned and scratch allocated once; a call checks v and
+    makes one launch (on CPU tensors: the twin). The scratch is shared by
+    the calls, which the stream orders.
+
+    support: per band the (lo, hi) cell range outside which its blocks are
+    zero (BandedStructure.support; default: all cells); the kernel skips a
+    band outside it, and keeps only the bands that span most cells
+    (bsgs_dense_bands) in shared memory. smem_bytes and n_blocks override
+    the card's shared memory per block and grid in the plan (tests force
+    the residency cases with them)."""
+
+    def __init__(self, dinv, dn, dms, sweeps: int, support=None,
+                 smem_bytes=None, n_blocks=None):
+        _check_bsgs(dinv, dn, dms, sweeps, support)
+        self.dinv, self.dn, self.dms, self.sweeps = dinv, dn, tuple(dms), \
+            sweeps
+        self.NC, self.dtype, self.device = dn.shape[3], dn.dtype, dn.device
+        if self.device.type != "cuda":
+            return
+        self.support = (tuple((0, self.NC) for _ in self.dms)
+                        if support is None else tuple(support))
+        dense = bsgs_dense_bands(self.support, self.NC)
+        lim = bsgs_device_limits(self.device)
+        self.plan = bsgs_launch_plan(
+            self.NC, sum(dense), self.dtype,
+            lim["smem_per_block"] if smem_bytes is None else smem_bytes,
+            lim["n_blocks"] if n_blocks is None else n_blocks)
+        lib = _load("banded_bsgs")
+        self._fn = (lib.fvens_banded_bsgs_f32 if self.dtype == torch.float32
+                    else lib.fvens_banded_bsgs_f64)
+        self._scratch = torch.empty((2, self.NC, V), dtype=self.dtype,
+                                    device=self.device)
+        p = self.plan
+        self._args = BsgsArgs(
+            dinv=dinv.data_ptr(), dn=dn.data_ptr(),
+            dv=self._scratch[0].data_ptr(), z=self._scratch[1].data_ptr(),
+            device=self.device.index, nc=self.NC, nbands=len(self.dms),
+            sweeps=sweeps, blocks=p.blocks, chunk=p.chunk, n_res=p.n_res,
+            smem_bytes=p.smem_bytes,
+            dense=sum(1 << k for k, d in enumerate(dense) if d),
+            offsets=(ctypes.c_int * MAX_BANDS)(*self.dms),
+            lo=(ctypes.c_int * MAX_BANDS)(*(lo for lo, _ in self.support)),
+            hi=(ctypes.c_int * MAX_BANDS)(*(hi for _, hi in self.support)))
+        self._args_ref = ctypes.byref(self._args)
+
+    def __call__(self, v):
+        _check_vec("v", v, self.NC)
+        _check_ops("bsgs_apply", [v], self.dtype, self.device)
+        if self.device.type == "cpu":
+            return bsgs_apply_plain(self.dinv, self.dn, self.dms, self.sweeps,
+                                    v)
+        out = torch.empty_like(v)
+        err = self._fn(self._args_ref, v.data_ptr(), out.data_ptr(),
+                       _stream(self.device))
+        if err != 0:
+            _raise_launch("banded_bsgs", _LIBS["banded_bsgs"][0],
+                          "fvens_bsgs_error_string", err)
+        bsgs_apply.launches += 1
+        return out
+
+
+def bsgs_apply(dinv, dn, dms, sweeps: int, v, support=None,
+               smem_bytes=None, n_blocks=None):
+    """The bsgs preconditioner apply z = D^-1 v, then `sweeps` times
+    z <- D^-1 v - sum_k (D^-1 N)_k z_(+d_k): one launch of the fused CUDA
+    kernel on CUDA tensors, its plain twin on CPU tensors. dinv (1, V, V,
+    NC) and dn (K, V, V, NC) as bsgs_bands gives them, v (NC, V); support
+    as BsgsApply takes it."""
+    if v.dtype != dn.dtype:
+        raise TypeError("dinv, dn and v must share one dtype")
+    return BsgsApply(dinv, dn, dms, sweeps, support, smem_bytes,
+                     n_blocks)(v)
+
+
+bsgs_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# operator builders (once per Newton step)
+# ---------------------------------------------------------------------------
 
 def matvec_bands(D, Bt, offsets):
     """(bands, shifts) of the matvec launch: D (NC, V, V) joins the band
@@ -143,23 +404,43 @@ def make_banded_matvec_kernel(D, Bt, offsets):
     """Kernel form of banded.make_banded_matvec: the diagonal D joins as the
     d = 0 band, so the whole matvec is one launch.
     D (NC, V, V); Bt (K, V, V, NC) from banded_blocks."""
-    bands, dms = matvec_bands(D, Bt, offsets)
+    apply = BandedApply(*matvec_bands(D, Bt, offsets))
 
     def mv(x):
-        return banded_apply(bands, x.contiguous(), dms)
+        return apply(x.contiguous())
     return mv
 
 
-def make_banded_bsgs_kernel(Dinv, DNbt, offsets, sweeps: int):
-    """Kernel form of banded.make_banded_bsgs: D^-1 v is the d = 0-only
-    launch; each damped block-Jacobi sweep z' = D^-1 v - (D^-1 N) z_nbr is
-    one launch with base = D^-1 v and sign = -1."""
-    (dinv, d0), (dn, dms) = bsgs_bands(Dinv, DNbt, offsets)
+def make_banded_bsgs_kernel(Dinv, DNbt, offsets, sweeps: int, support=None):
+    """Kernel form of banded.make_banded_bsgs: the whole apply (D^-1 v and
+    the damped block-Jacobi sweeps) is one launch of the fused kernel.
+    support: the bands' BandedStructure.support, or None (all cells)."""
+    (dinv, _), (dn, dms) = bsgs_bands(Dinv, DNbt, offsets)
+    apply = BsgsApply(dinv, dn, dms, sweeps, support)
 
     def pc(v):
-        dv = banded_apply(dinv, v.contiguous(), d0)
+        return apply(v.contiguous())
+    return pc
+
+
+def make_banded_bsgs_sequence(Dinv, DNbt, offsets, sweeps: int):
+    """The bsgs apply as 1 + sweeps banded_apply launches: D^-1 v is the
+    d = 0-only launch; each sweep z' = D^-1 v - (D^-1 N) z_nbr is one launch
+    with base = D^-1 v and sign = -1. The fused kernel's bit-for-bit
+    reference (off the solver's path)."""
+    (dinv, _), (dn, dms) = bsgs_bands(Dinv, DNbt, offsets)
+    return bsgs_sequence(dinv, dn, dms, sweeps)
+
+
+def bsgs_sequence(dinv, dn, dms, sweeps: int):
+    """make_banded_bsgs_sequence on the bands as BsgsApply takes them:
+    dinv (1, V, V, NC), dn (K, V, V, NC) and its shifts dms."""
+    first, sweep = BandedApply(dinv, (0,)), BandedApply(dn, dms, sign=-1.0)
+
+    def pc(v):
+        dv = first(v.contiguous())
         z = dv
         for _ in range(sweeps):
-            z = banded_apply(dn, z, dms, sign=-1.0, base=dv)
+            z = sweep(z, dv)
         return z
     return pc

@@ -16,9 +16,10 @@ Each step runs eagerly on the tensors' device; the scalar control flow (CFL
 ramp, Krylov forcing, recovery) stays on the host, fed by one residual
 fetch per step. The linear solve takes the banded path
 (LinearSolverConfig.banded with pc bsgs): with LinearSolverConfig.pallas and
-CUDA tensors its block applies are the CUDA kernel of
-solver/banded_kernels.py, otherwise the plain PyTorch twins of
-solver/banded.py.
+CUDA tensors the matvec is one launch of the banded-apply kernel and the
+whole bsgs preconditioner apply (D^-1 v and the sweeps) one launch of the
+fused bsgs kernel, both in solver/banded_kernels.py; otherwise (pallas=False,
+or CPU tensors) the plain PyTorch twins of solver/banded.py.
 
 Not ported yet, and refused with NotImplementedError: the gather-path
 preconditioners, the banded bjacobi preconditioner, matrix-free operators,
@@ -228,13 +229,14 @@ class SteadyBackwardEuler:
         return rhs, lrhs, banded_operators(bl, jac)
 
     def _linear_operators(self, ops):
-        """(matvec, pc) of the banded path: the CUDA kernel's or the plain
-        twins'."""
+        """(matvec, pc) of the banded path: the CUDA kernels' (the matvec
+        and the fused bsgs apply) or the plain twins'."""
         if self._kernel_on(ops.D):
             return (make_banded_matvec_kernel(ops.D, ops.Bt, ops.bl.offsets),
                     make_banded_bsgs_kernel(ops.Dinv, ops.DNbt,
                                             ops.bl.offsets,
-                                            self.lin.pc_sweeps))
+                                            self.lin.pc_sweeps,
+                                            ops.bl.support))
         return (make_banded_matvec(ops.D, ops.Bt, ops.bl.offsets),
                 make_banded_bsgs(ops.Dinv, ops.DNbt, ops.bl.offsets,
                                  self.lin.pc_sweeps))

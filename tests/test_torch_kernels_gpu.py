@@ -1,5 +1,5 @@
-"""The CUDA kernels (banded_apply, row_set) against their plain PyTorch
-twins, on the card.
+"""The CUDA kernels (banded_apply, the fused bsgs apply, row_set) against
+their plain PyTorch twins, on the card.
 
 Needs a CUDA card and nvcc: marked `gpu`, and each test skips when
 torch.cuda.is_available() is false. Imports no JAX, so it runs where JAX is
@@ -8,10 +8,12 @@ not installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
 
-Tolerances: banded_apply f32 to 1e-5 of max|y|, f64 to 1e-12 of max|y|
-(the kernel fuses multiply-adds and sums bands in another order than the
-twin); row_set bit for bit (one true IEEE division per element, as the
-twin).
+Tolerances: banded_apply and the fused bsgs apply f32 to 1e-5 of max|y|,
+f64 to 1e-12 of max|y| of their twins (the kernels fuse multiply-adds and
+sum bands in another order than the twins); the fused bsgs apply equals the
+seven-launch banded_apply sequence value for value (both run the cell
+arithmetic of csrc/banded_block.cuh); row_set bit for bit (one true IEEE
+division per element, as the twin).
 """
 
 import numpy as np
@@ -57,13 +59,13 @@ def test_kernel_matches_twin_on_step_operators(cuda, dtype):
     cm, ops = _ops(cuda, dtype)
     offs = ops.bl.offsets
     bands7, d7 = bk.matvec_bands(ops.D, ops.Bt, offs)
-    (bands1, d1), (bands6, d6) = bk.bsgs_bands(ops.Dinv, ops.DNbt, offs)
+    (bands1, d1), (bandsn, dms_n) = bk.bsgs_bands(ops.Dinv, ops.DNbt, offs)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (cm.NC, 4))).to(cuda, dtype)
     base = bk.banded_apply_plain(bands1, x, d1)
     for bands, dms, sign, b in ((bands7, d7, 1.0, None),
                                 (bands1, d1, 1.0, None),
-                                (bands6, d6, -1.0, base)):
+                                (bandsn, dms_n, -1.0, base)):
         n0 = bk.banded_apply.launches
         y = bk.banded_apply(bands, x, dms, sign, b)
         torch.cuda.synchronize()
@@ -82,12 +84,19 @@ def test_kernel_operators_match_twin_operators(cuda, dtype):
     mv_k = bk.make_banded_matvec_kernel(ops.D, ops.Bt, offs)
     mv_p = tb.make_banded_matvec(ops.D, ops.Bt, offs)
     assert _rel_err(mv_k(x), mv_p(x)) <= TOL[dtype]
-    pc_k = bk.make_banded_bsgs_kernel(ops.Dinv, ops.DNbt, offs, 6)
+    pc_k = bk.make_banded_bsgs_kernel(ops.Dinv, ops.DNbt, offs, 6,
+                                      ops.bl.support)
+    pc_s = bk.make_banded_bsgs_sequence(ops.Dinv, ops.DNbt, offs, 6)
     pc_p = tb.make_banded_bsgs(ops.Dinv, ops.DNbt, offs, 6)
-    n0 = bk.banded_apply.launches
+    n0, f0 = bk.banded_apply.launches, bk.bsgs_apply.launches
     z = pc_k(x)
+    assert bk.bsgs_apply.launches == f0 + 1
+    assert bk.banded_apply.launches == n0
+    zs = pc_s(x)
+    torch.cuda.synchronize()
     assert bk.banded_apply.launches == n0 + 7
-    assert _rel_err(z, pc_p(x)) <= 10 * TOL[dtype]
+    assert torch.equal(z, zs)
+    assert _rel_err(z, pc_p(x)) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("NC,K", [(1, 1), (129, 8), (1000, 6)])
@@ -109,6 +118,123 @@ def test_kernel_refuses_bad_input(cuda):
     with pytest.raises(TypeError):
         bk.banded_apply(bands, torch.zeros(8, 4, device=cuda,
                                            dtype=torch.float64), (0, 1))
+
+
+def _bsgs_inputs(dev, dtype, NC, K=bk.MAX_BANDS, seed=0):
+    """Random D^-1 (1, 4, 4, NC), D^-1 N (K, 4, 4, NC) scaled so that a
+    sweep contracts, shifts normalized into (-NC/2, NC/2] with a duplicate
+    (as the O-mesh seam bands have), and v (NC, 4)."""
+    g = np.random.default_rng(seed + NC)
+    dinv = g.standard_normal((1, 4, 4, NC)) / 4
+    dn = g.standard_normal((K, 4, 4, NC)) * (0.5 / (4 * K))
+    dms = list(tb._norm_offsets(g.integers(-2 * NC, 2 * NC, K), NC))
+    if K > 2:
+        dms[-1] = dms[1]
+    v = g.standard_normal((NC, 4))
+
+    def put(a):
+        return torch.from_numpy(a).to(dev, dtype)
+    return put(dinv), put(dn), tuple(int(d) for d in dms), put(v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("NC", [1, 129, 1000, 12_800, 204_800])
+def test_bsgs_fused_equals_sequence(cuda, dtype, NC):
+    """Every K 1-8 and sweeps 0-6: one launch, equal to the sequence value
+    for value, within TOL of the twin."""
+    dinv, dn8, dms8, v = _bsgs_inputs(cuda, dtype, NC)
+    for K in range(1, bk.MAX_BANDS + 1):
+        dn, dms = dn8[:K], dms8[:K]
+        for sweeps in range(7):
+            f0, n0 = bk.bsgs_apply.launches, bk.banded_apply.launches
+            z = bk.bsgs_apply(dinv, dn, dms, sweeps, v)
+            torch.cuda.synchronize()
+            assert bk.bsgs_apply.launches == f0 + 1
+            assert bk.banded_apply.launches == n0
+            assert z.shape == (NC, 4) and z.dtype == dtype and z.is_cuda
+            zs = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+            assert torch.equal(z, zs), (K, sweeps)
+            zp = bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)
+            assert _rel_err(z, zp) <= TOL[dtype], (K, sweeps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsgs_residency_cases(cuda, dtype):
+    """All cells resident, some, none (forced through the plan's shared
+    memory), and the card's own plan at 204,800 cells (some)."""
+    K, sweeps = 6, 6
+    NC = 12_800
+    dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K)
+    blocks = bk.bsgs_device_limits(cuda)["n_blocks"]
+    per_cell = bk.bsgs_cell_bytes(K, dtype)
+    chunk = -(-NC // blocks)
+    want = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+    for smem, n_res in ((chunk * per_cell, chunk),
+                        (chunk // 2 * per_cell, chunk // 2), (0, 0)):
+        app = bk.BsgsApply(dinv, dn, dms, sweeps, smem_bytes=smem)
+        assert app.plan.n_res == n_res and app.plan.smem_bytes <= smem
+        assert torch.equal(app(v), want), n_res
+    NC = 204_800
+    dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K)
+    app = bk.BsgsApply(dinv, dn, dms, sweeps)
+    assert 0 < app.plan.n_res < app.plan.chunk
+    assert torch.equal(app(v), bk.bsgs_sequence(dinv, dn, dms, sweeps)(v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("NC", [129, 12_800, 204_800])
+def test_bsgs_skips_bands_outside_their_support(cuda, dtype, NC):
+    """Bands zero outside a cell range (as the O-mesh seam bands are), with
+    their supports given: the kernel skips them there and keeps only the
+    dense bands in shared memory, and still equals the sequence."""
+    K, sweeps = 6, 6
+    dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K)
+    ring = max(NC // 40, 1)
+    support = [(0, NC)] * 4 + [(0, ring), (NC - ring, NC)]
+    support[2] = (ring, NC)
+    for k, (lo, hi) in enumerate(support):
+        dn[k, :, :, :lo] = 0
+        dn[k, :, :, hi:] = 0
+    want = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+    for smem in (None, 0):
+        app = bk.BsgsApply(dinv, dn, dms, sweeps, support, smem_bytes=smem)
+        assert torch.equal(app(v), want), smem
+    per_cell = bk.bsgs_cell_bytes(4, dtype)
+    assert app.plan.n_res == 0
+    app = bk.BsgsApply(dinv, dn, dms, sweeps, support)
+    assert app.plan.n_res == min(app.plan.chunk,
+                                 bk.bsgs_device_limits(cuda)["smem_per_block"]
+                                 // per_cell)
+    with pytest.raises(ValueError):
+        bk.BsgsApply(dinv, dn, dms, sweeps, support[:5])
+    with pytest.raises(ValueError):
+        bk.BsgsApply(dinv, dn, dms, sweeps, [(0, NC + 1)] * 6)
+
+
+def test_bsgs_refuses_bad_input(cuda):
+    """Bad operands raise before a launch; a grid or shared memory the card
+    cannot take makes the launch fail, and the wrapper raises (no fallback
+    to the sequence or the twin)."""
+    dinv, dn, dms, v = _bsgs_inputs(cuda, torch.float32, 12_800, 6)
+    with pytest.raises(ValueError):
+        bk.bsgs_apply(dinv, dn, dms, 6, v.cpu())             # v on the host
+    with pytest.raises(TypeError):
+        bk.bsgs_apply(dinv, dn, dms, 6, v.double())          # mixed dtypes
+    with pytest.raises(ValueError):
+        bk.bsgs_apply(dinv, dn, dms, -1, v)                  # sweeps < 0
+    with pytest.raises(ValueError):
+        bk.bsgs_apply(dinv, dn, dms[:5], 6, v)               # a shift short
+    with pytest.raises(ValueError):
+        bk.bsgs_apply(dinv[:, :, :, :-1], dn, dms, 6, v)     # dinv's NC
+    n0 = bk.bsgs_apply.launches
+    with pytest.raises(RuntimeError):
+        bk.bsgs_apply(dinv, dn, dms, 6, v, n_blocks=12_800)  # grid too large
+    with pytest.raises(RuntimeError):
+        bk.bsgs_apply(dinv, dn, dms, 6, v, n_blocks=1,
+                      smem_bytes=1 << 30)                    # smem too large
+    assert bk.bsgs_apply.launches == n0
+    z = bk.bsgs_apply(dinv, dn, dms, 6, v)                   # still launches
+    assert torch.equal(z, bk.bsgs_sequence(dinv, dn, dms, 6)(v))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

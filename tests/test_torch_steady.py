@@ -222,6 +222,7 @@ def test_profile_step_runs_on_the_host(capsys):
                                 "gmres_ms", "step_ms"))
     # on CPU tensors the wrapper takes the plain twin and launches nothing
     assert trace["kernel_launches"] == 0 and trace["traced_wall_ms"] > 0
+    assert trace["bsgs_launches"] == 0
 
 
 @pytest.mark.parametrize("change", [
