@@ -2,9 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card, each through the three CUDA
-kernels' wrappers with the launch counts zeroed just before it and read just
-after:
+Drives the port's paths on the card, each through the three CUDA kernels'
+wrappers with the launch counts zeroed just before it and read just after:
 
   - the large-mesh path: the inviscid cylinder of
     cases/bigmesh_case.run_solve at its full 640x320 mesh (204,800 cells,
@@ -16,6 +15,11 @@ after:
     fused bsgs kernel (the whole preconditioner apply); gmres takes its
     blocked path there by itself, whose basis appends are the row_set
     kernel;
+  - the same case on the gather path (bigmesh_case.GATHER_BSGS, the twin of
+    scripts/bench_bigmesh.py without --banded): the slot matvec and bsgs x6
+    on slot gathers in plain PyTorch, and row_set once per Krylov
+    iteration; and under the JAX package's default preconditioner
+    (GATHER_BCSGS, bcsgs x3), timed over GATHER_STEPS main steps;
   - the bench path of the first slice: the banded laminar NACA0012 solve on
     naca0012_omesh(160, 80) (cases/bench_case.run_solve, 600 steps).
 
@@ -30,9 +34,11 @@ In order:
      K=6) and the fused bsgs apply on the same operators, at f32 (max abs
      error <= 1e-5 max|y|) and f64 (<= 1e-12 max|y|), the fused apply also
      equal value for value to the seven-launch banded_apply sequence; and
-     row_set at n = 819,200 (the 640x320 basis) and 262,528 (where the TPU
-     kernel's tile gate refuses the row) at f32 and f64: bit for bit, the
-     other basis rows unchanged, V's storage unchanged. Times each call
+     row_set at n = 819,200 (the 640x320 basis), 262,528 (where the TPU
+     kernel's tile gate refuses the row), 1,638,400 and 819,207 (rows that
+     start off a 16-byte boundary) at f32 and f64, and with a NaN norm:
+     bit for bit, the other basis rows unchanged, V's storage unchanged.
+     Times each call
      (CUDA events, median of TIMED_RUNS), its device time (device_ms: calls
      queued back to back behind a device-side sleep), the twin, the fused
      apply's sequence, and the matvec as one torch.sparse_bsr_tensor product
@@ -45,10 +51,16 @@ In order:
      once and fewer than twice per Krylov iteration (the sweeps left it).
      The run's counts are printed beside the JAX package's TPU counts of the
      same case in BENCH_BIGMESH.json, as context only;
-  5. runs the first COMPARE_STEPS main steps of the 640x320 case from the
+  5. runs the 640x320 case on the gather path once, timed (the process is
+     warm from step 4): gmres must run blocked, the main solve converge to
+     1e-10 with a finite state, row_set launch once per Krylov iteration,
+     and neither banded kernel launch; then, with bcsgs x3, the starter and
+     GATHER_STEPS main steps: finite residuals, row_set once per Krylov
+     iteration, seconds and Krylov iterations per step printed;
+  6. runs the first COMPARE_STEPS main steps of the 640x320 case from the
      starter's state with the fused apply and with the sequence in its
      place: Krylov iterations and residuals must be identical;
-  6. runs the 160x80 cylinder with gmres forced blocked and holds it to
+  7. runs the 160x80 cylinder with gmres forced blocked and holds it to
      the JAX package's CPU runs in records/jax_bigmesh_history.json: it
      must converge, its starter must take the record's steps (Krylov
      iterations within 2%), its first AGREE_STEPS main steps must match the
@@ -57,31 +69,40 @@ In order:
      10% of the JAX package's run on either GMRES path. The two JAX runs
      agree with each other step for step until the residual nears 1e-7 and
      then part (blocked 54 steps / 1,318 iterations, classic 49 / 850), so
-     an endgame nearer to one of them than 10% of the other is no fault;
-  7. runs the bench solve (its full 600 steps), whose state must stay finite
+     an endgame nearer to one of them than 10% of the other is no fault.
+     The same for the gather path against records/jax_gather_history.json:
+     bsgs x6 blocked (forced) and classic, and bcsgs x3 classic, each held
+     to the record of its own GMRES path step for step and, in its totals,
+     to the range of the JAX package's runs of its preconditioner (10%
+     for bsgs, 35% for bcsgs, whose endgame is a long stall);
+  8. runs the bench solve (its full 600 steps), whose state must stay finite
      with at least one banded_apply and one fused bsgs launch per Krylov
      iteration. It must reach 1e-10 if the JAX package's own solve of the
      same case did (JAX_RECORD, made by records/jax_bench_history.py); on
      this generated mesh that solve does not converge, but cycles between
      residuals near 1e-3 and blowups, and the port's lowest residual must
      then be within 10x of the JAX package's;
-  8. runs the first-order (starter) form of the bench solve, which must
+  9. runs the first-order (starter) form of the bench solve, which must
      converge to 1e-10 through the kernels in the steps and Krylov
      iterations of the JAX package's run (JAX_RECORD);
-  9. runs the bench's first steps again through the plain twins: 3 steps
+ 10. runs the bench's first steps again through the plain twins: 3 steps
      in full f64 (equal Krylov iterations per step, residuals to 1e-4), and
      the first step in mixed precision (equal iterations, the two residuals
      it determines to 1e-4). Later mixed-precision steps are not compared:
      at step 2 the f32 Krylov solve stops unconverged at 90 iterations and
      the trajectory turns chaotic (a rounding-level change becomes a
      residual tens of percent apart at step 3);
- 10. holds small solves on the card, through the kernels, to the JAX
-     package's histories of the same inputs (SMALL_CASES).
+ 11. holds small solves on the card, through the kernels, to the JAX
+     package's histories of the same inputs (SMALL_CASES, and on the
+     gather path and with the banded bjacobi preconditioner
+     GATHER_SMALL_CASES).
 
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
-kernel record (launches from the 640x320 solve of step 4), and the one
-before that the seconds each phase took.
+kernel record (launches of banded_apply and banded_bsgs from the banded
+640x320 solve of step 4, of row_set from the gather 640x320 solve of step
+5, and each path's counts under launches_by_path), and the one before
+that the seconds each phase took.
 """
 
 import contextlib
@@ -117,7 +138,17 @@ JAX_BIGMESH_RECORD = "records/jax_bigmesh_history.json"
 TPU_BIGMESH = "BENCH_BIGMESH.json"
 CHECK_MESH = (160, 80)           # the cylinder mesh held to the JAX record
 AGREE_STEPS = 30                 # main steps held to it step for step
-ROWSET_SIZES = (819_200, 262_528)
+# bcsgs x3 at 160x80: from about main step 28 its Krylov solves climb to
+# 90 iterations and the residual stalls near 1e-7 for over a hundred steps;
+# runs that differ in rounding only part there (the JAX package's blocked
+# and classic runs after step 32, the port's CPU run after step 28) and
+# end apart: the JAX runs 179 and 192 main steps, 4,983 and 5,809 Krylov
+# iterations; the port's CPU run 235 and 7,074
+AGREE_STEPS_BCSGS = 25
+GATHER_TOTALS_SLACK = {"bsgs": 0.1, "bcsgs": 0.35}
+ROWSET_SIZES = (819_200, 262_528, 1_638_400, 819_207)
+JAX_GATHER_RECORD = "records/jax_gather_history.json"
+GATHER_STEPS = 30                # bcsgs x3 main steps timed at 640x320
 # The JAX package's 600-step runs of the bench solve and its first-order
 # form on the CPU with x64 (records/jax_bench_history.py).
 JAX_RECORD = "records/jax_bench_history.json"
@@ -147,6 +178,28 @@ SMALL_CASES = (
               (1.5125613948753131e-06, 27), (1.0636789925952186e-07, 25),
               (1.449988974291442e-08, 25), (1.7446546446648528e-09, 29),
               (2.962483996052874e-10, 31), (4.267653691212231e-11, 31))),
+)
+# The small solves on the gather path (bcsgs x3, bsgs x6 on slot gathers)
+# and with the banded bjacobi preconditioner: the bench physics on
+# SMALL_MESH in f64 from free stream at CFL 50 -> 500, `lin` the linear
+# solver; `ref` the JAX package's history on the CPU with x64, which
+# tests/test_torch_gather.py recomputes and holds these numbers to.
+GATHER_SMALL_CASES = (
+    dict(order2=True, mixed=False, cfl=(50.0, 500.0), iters=0, res=1e-9,
+         lin=dict(banded=False, pc="bcsgs", pc_sweeps=3),
+         ref=((0.004550080908796354, 4), (0.040889349625534234, 7),
+              (0.030985795118297372, 5), (0.06255234089111243, 9),
+              (0.06659699781482714, 8))),
+    dict(order2=True, mixed=False, cfl=(50.0, 500.0), iters=0, res=1e-9,
+         lin=dict(banded=False, pc="bsgs", pc_sweeps=6),
+         ref=((0.004550080908796354, 3), (0.017839357376151985, 5),
+              (0.026643891582820607, 4), (0.060447761505011466, 4),
+              (0.08297698897761835, 3))),
+    dict(order2=True, mixed=False, cfl=(50.0, 500.0), iters=0, res=1e-9,
+         lin=dict(banded=True, pc="bjacobi", pc_sweeps=1),
+         ref=((0.004550080908796354, 17), (0.013133674718231937, 35),
+              (0.026732233221273903, 26), (0.05554944364325741, 27),
+              (0.0801715646359735, 19))),
 )
 
 
@@ -206,11 +259,14 @@ def jax_record(order2: bool, mixed: bool) -> dict:
                 if s["order2"] == order2 and s["mixed"] == mixed)
 
 
-def cylinder_record(mesh: str) -> list:
+def cylinder_record(mesh: str, record: str = JAX_BIGMESH_RECORD,
+                    pc: str = "bsgs") -> list:
     """The JAX package's runs of the cylinder case on `mesh` (e.g.
-    "cylinder_omesh(160, 80)") in JAX_BIGMESH_RECORD, blocked GMRES first."""
-    return sorted((r for r in _load(JAX_BIGMESH_RECORD)["runs"]
-                   if r["mesh"] == mesh),
+    "cylinder_omesh(160, 80)") with preconditioner `pc` in `record`
+    (JAX_BIGMESH_RECORD: banded bsgs; JAX_GATHER_RECORD: the gather path),
+    blocked GMRES first."""
+    return sorted((r for r in _load(record)["runs"]
+                   if r["mesh"] == mesh and r.get("pc", "bsgs") == pc),
                   key=lambda r: not r["blocked_gmres"])
 
 
@@ -391,8 +447,9 @@ def library_matvec(ops, x, want, tol) -> dict:
 
 def rowset_checks(dev):
     """row_set vs its plain twin on a (96, n) basis, the blocked path's
-    FGMRES(90) basis, at f32 and f64: bit for bit, only row j written, in
-    place."""
+    FGMRES(90) basis, at ROWSET_SIZES, f32 and f64, and with a NaN norm at
+    the first size: bit for bit (NaN where the twin has NaN), only row j
+    written, in place. Times each size and dtype with the norm of w."""
     import torch
     from fvens_tpu_torch.cases.profile_step import device_ms
     from fvens_tpu_torch.solver import rowset_kernels as rk
@@ -405,19 +462,30 @@ def rowset_checks(dev):
             V = torch.from_numpy(rng.standard_normal((96, n))).to(dev, dtype)
             w = torch.from_numpy(rng.standard_normal(n)).to(dev, dtype)
             hn = torch.sqrt(torch.sum(w * w))
-            V0, ptr = V.clone(), V.data_ptr()
-            out = rk.row_set(V, j, w, hn)
-            torch.cuda.synchronize()
-            want = rk.rowset_plain(V0.clone(), j, w, hn)
             row = dict(n=n, dtype=str(dtype)[6:], j=j,
-                       max_abs_err=float((V - want).abs().max()))
-            check(out is V and V.data_ptr() == ptr,
-                  f"row_set did not write the basis in place: {row}")
-            check(torch.equal(V[j], want[j]),
-                  f"row_set differs from its twin: {row}")
-            check(torch.equal(V[:j], V0[:j]) and torch.equal(V[j + 1:],
-                                                           V0[j + 1:]),
-                  f"row_set wrote another row: {row}")
+                       row_offset_bytes=V[j].data_ptr() % 16,
+                       max_abs_err=0.0)
+            norms = [hn]
+            if n == ROWSET_SIZES[0]:
+                norms.append(torch.full_like(hn, float("nan")))
+            for norm in norms:
+                V0, ptr = V.clone(), V.data_ptr()
+                out = rk.row_set(V, j, w, norm)
+                torch.cuda.synchronize()
+                want = rk.rowset_plain(V0.clone(), j, w, norm)
+                what = f"{row}, norm {float(norm)}"
+                check(out is V and V.data_ptr() == ptr,
+                      f"row_set did not write the basis in place: {what}")
+                check(torch.equal(V[j].isnan(), want[j].isnan())
+                      and torch.equal(V[j].nan_to_num(),
+                                      want[j].nan_to_num()),
+                      f"row_set differs from its twin: {what}")
+                check(torch.equal(V[:j], V0[:j])
+                      and torch.equal(V[j + 1:], V0[j + 1:]),
+                      f"row_set wrote another row: {what}")
+                row["max_abs_err"] = max(row["max_abs_err"], float(
+                    (V - want).nan_to_num().abs().max()))
+            row["nan_norm_checked"] = len(norms) > 1
             row["ms"] = event_ms(lambda: rk.row_set(V, j, w, hn))
             row["device_ms"] = device_ms(lambda: rk.row_set(V, j, w, hn),
                                          n=200)
@@ -426,6 +494,7 @@ def rowset_checks(dev):
                 (2 * n + 1) * V.element_size(), n, row["dtype"])
             rows.append(row)
             print("row_set check", json.dumps(row), flush=True)
+            del V, V0, want
     return rows
 
 
@@ -485,6 +554,79 @@ def cylinder_path(dev):
           f"{launches['banded_apply']} banded_apply launches for {its} "
           "Krylov iterations: not one matvec each (plus one per cycle)")
     return rep, launches
+
+
+def gather_path(dev):
+    """The gather path, counted: bigmesh_case.run_solve at 640x320 with
+    GATHER_BSGS, one solve (the process is warm from the banded one).
+    Returns (report, launches)."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.solver import linear
+
+    torch.cuda.synchronize()
+    zero_counts()
+    u, rep = bigmesh_case.run_solve(dev, warmup=False,
+                                    **bigmesh_case.GATHER_BSGS)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print("cylinder gather solve", json.dumps(dict(rep, launches=launches)),
+          flush=True)
+    its = rep["krylov_iters_all"]
+    check(rep["n"] >= linear._BLOCKED_N_THRESHOLD and rep["blocked"]
+          and not rep["banded"], f"the gather solve is not blocked: {rep}")
+    check(rep["converged"] and rep["abs_res"] <= bigmesh_case.TOL_ABS,
+          f"the gather solve did not converge to {bigmesh_case.TOL_ABS}: "
+          f"{rep['abs_res']!r} after {rep['main_steps']} steps")
+    check(u.dtype == torch.float64 and bool(torch.isfinite(u).all())
+          and np.isfinite(rep["entropy"]), "non-finite gather solution")
+    check(its > 0 and launches["row_set"] == its,
+          f"{launches['row_set']} row_set launches for {its} basis appends")
+    check(launches["banded_apply"] == launches["banded_bsgs"] == 0,
+          f"the gather solve launched a banded kernel: {launches}")
+    return rep, launches
+
+
+def bcsgs_steps(dev):
+    """The 640x320 case with GATHER_BCSGS: the starter, then GATHER_STEPS
+    main steps, timed, with finite residuals and one row_set launch per
+    Krylov iteration. Returns the launches of the main steps."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.cases.casesolvers import build_space
+
+    case, cm, u = bigmesh_case.build_case(dev, *bigmesh_case.BIGMESH,
+                                          **bigmesh_case.GATHER_BCSGS)
+    t0 = time.perf_counter()
+    u = case.execute_starter(cm, u)
+    torch.cuda.synchronize()
+    starter_s = time.perf_counter() - t0
+    st = case.starter_info
+    solver = case._make_solver(build_space(case.cfg), case.cfg.main)
+    zero_counts()
+    t0 = time.perf_counter()
+    u, info = solver.solve(cm, u, max_steps=GATHER_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    its = info.total_lin_iters
+    print("cylinder bcsgs steps", json.dumps(dict(
+        pc="bcsgs", pc_sweeps=case.cfg.linear.pc_sweeps,
+        starter_steps=st.steps, starter_krylov_iters=st.total_lin_iters,
+        starter_s=starter_s, main_steps=info.steps, krylov_iters=its,
+        wall_s=wall, s_per_step=wall / max(info.steps, 1),
+        krylov_iters_per_step=its / max(info.steps, 1),
+        cell_updates_per_s=cm.n_cells * info.steps / wall,
+        residuals=[h[2] for h in info.history], launches=launches)),
+        flush=True)
+    check(info.steps == GATHER_STEPS and its > 0,
+          f"the bcsgs run took {info.steps} steps")
+    check(all(np.isfinite(h[2]) for h in info.history)
+          and bool(torch.isfinite(u).all()), "non-finite bcsgs residual")
+    check(launches["row_set"] == its
+          and launches["banded_apply"] == launches["banded_bsgs"] == 0,
+          f"bcsgs launches {launches} for {its} Krylov iterations")
+    return launches
 
 
 def zero_counts():
@@ -547,30 +689,44 @@ def fused_vs_sequence(dev):
           f"{hist['fused']} vs {hist['sequence']}")
 
 
-def cylinder_vs_record(dev):
-    """The CHECK_MESH cylinder with gmres forced blocked, against the JAX
-    package's runs in JAX_BIGMESH_RECORD."""
+def cylinder_vs_record(dev, record=JAX_BIGMESH_RECORD, lin=None,
+                       blocked=True):
+    """The CHECK_MESH cylinder (`lin` as bigmesh_case.case_config's banded,
+    pc and pc_sweeps; default the banded case) with gmres forced blocked
+    or on its classic path, against the JAX package's runs in `record`:
+    the run of the same GMRES path step for step over the first main steps
+    (AGREE_STEPS, AGREE_STEPS_BCSGS), and in the totals: the banded case
+    within 10% of either run of its record; the gather path within
+    GATHER_TOTALS_SLACK of the range of the JAX package's runs of its
+    preconditioner in both records (bsgs: banded and gather, blocked and
+    classic, the same operator summed in other orders). Their endgames
+    part near the f32 floor of the Krylov solves: at 160x80 the four bsgs
+    runs take 850 to 1,318 Krylov iterations, and the port's own runs on
+    the CPU 881 to 955; for bcsgs see AGREE_STEPS_BCSGS."""
     import torch
     from fvens_tpu_torch.cases import bigmesh_case
     from fvens_tpu_torch.solver import linear
-    from fvens_tpu_torch.solver import rowset_kernels as rk
 
+    lin = lin or {}
     mesh = f"cylinder_omesh{CHECK_MESH}"
-    recs = cylinder_record(mesh)
-    blk = recs[0]
-    check(blk["blocked_gmres"], f"no blocked-GMRES record of {mesh}")
+    recs = cylinder_record(mesh, record, lin.get("pc", "bsgs"))
+    blk = next((r for r in recs if r["blocked_gmres"] == blocked), None)
+    check(blk is not None, f"no record of {mesh} {lin} blocked={blocked}")
     saved = linear._BLOCKED_N_THRESHOLD
-    linear._BLOCKED_N_THRESHOLD = 0
+    if blocked:
+        linear._BLOCKED_N_THRESHOLD = 0
     try:
-        case, cm, u0 = bigmesh_case.build_case(dev, *CHECK_MESH)
-        n0 = rk.row_set.launches
+        case, cm, u0 = bigmesh_case.build_case(dev, *CHECK_MESH, **lin)
+        n0 = dict(read_counts())
         u, info = case.solve(cm, u0)
         torch.cuda.synchronize()
-        appends = rk.row_set.launches - n0
+        n1 = read_counts()
     finally:
         linear._BLOCKED_N_THRESHOLD = saved
+    appends = n1["row_set"] - n0["row_set"]
     st = case.starter_info
-    print(f"{mesh} blocked: starter {st.steps} steps / "
+    path = "blocked" if blocked else "classic"
+    print(f"{mesh} {lin or 'banded'} {path}: starter {st.steps} steps / "
           f"{st.total_lin_iters} iterations, main {info.steps} / "
           f"{info.total_lin_iters}, final {info.finalres!r}; the JAX "
           "package's: " + "; ".join(
@@ -580,22 +736,40 @@ def cylinder_vs_record(dev):
               for r in recs), flush=True)
     check(info.converged and bool(torch.isfinite(u).all()),
           f"the {mesh} solve did not converge")
-    check(appends == st.total_lin_iters + info.total_lin_iters,
-          f"{appends} row_set launches: gmres did not run blocked")
+    check(appends == (st.total_lin_iters + info.total_lin_iters
+                      if blocked else 0),
+          f"{appends} row_set launches: gmres did not run {path}")
+    if lin.get("banded") is False:
+        check(n1["banded_apply"] == n0["banded_apply"]
+              and n1["banded_bsgs"] == n0["banded_bsgs"],
+              "the gather run launched a banded kernel")
     s = blk["starter"]
     check(st.steps == s["steps"] and abs(st.total_lin_iters
                                          - s["krylov_iters"])
           <= 0.02 * s["krylov_iters"],
           "the starter departs from the JAX package's")
     ref = blk["main"]["history"]
-    check(len(info.history) >= AGREE_STEPS,
+    agree = AGREE_STEPS_BCSGS if lin.get("pc") == "bcsgs" else AGREE_STEPS
+    check(len(info.history) >= agree,
           f"the main solve took only {len(info.history)} steps")
-    for k in range(AGREE_STEPS):
+    for k in range(agree):
         (_, res_ref, _, it_ref), h = ref[k], info.history[k]
         check(abs(h[4] - it_ref) <= 1 and abs(h[2] - res_ref)
               <= 0.01 * res_ref,
               f"main step {k + 1}: iterations {h[4]} vs {it_ref}, residual "
               f"{h[2]!r} vs {res_ref!r}")
+
+    if lin.get("banded") is False:
+        refs = [r for rec in (JAX_BIGMESH_RECORD, JAX_GATHER_RECORD)
+                for r in cylinder_record(mesh, rec, lin["pc"])]
+        slack = GATHER_TOTALS_SLACK[lin["pc"]]
+        for got, key in ((info.steps, "steps"),
+                         (info.total_lin_iters, "krylov_iters")):
+            vals = [r["main"][key] for r in refs]
+            check((1 - slack) * min(vals) <= got <= (1 + slack) * max(vals),
+                  f"main {key} {got} not within {slack:.0%} of the JAX "
+                  f"package's {min(vals)}-{max(vals)}")
+        return
 
     def near(r):
         return (abs(info.steps - r["main"]["steps"])
@@ -719,7 +893,7 @@ def small_history(dev, case: dict):
     from fvens_tpu_torch.cases.casesolvers import initial_state
 
     solver, cm = bench_solver(dev, mesh=SMALL_MESH, mixed=case["mixed"],
-                              order2=case["order2"])
+                              order2=case["order2"], **case.get("lin", {}))
     solver.cfg = dataclasses.replace(solver.cfg, cfl_init=case["cfl"][0],
                                      cfl_fin=case["cfl"][1])
     return solver.solve(cm, initial_state(solver.space, cm),
@@ -727,10 +901,11 @@ def small_history(dev, case: dict):
 
 
 def small_solves(dev):
-    for case in SMALL_CASES:
+    for case in SMALL_CASES + GATHER_SMALL_CASES:
         ref = case["ref"]
         hist = small_history(dev, case)
-        name = f"order2={case['order2']} mixed={case['mixed']}"
+        name = (f"order2={case['order2']} mixed={case['mixed']} "
+                f"{case.get('lin', 'banded bsgs')}")
         check(len(hist) == len(ref), f"small solve {name} ran {len(hist)} "
               f"steps, not {len(ref)}")
         for k, ((res_ref, it_ref), h) in enumerate(zip(ref, hist)):
@@ -769,13 +944,26 @@ def main() -> int:
                                lambda mixed: bench_solver(dev, mixed=mixed))
         brows, frows = brows + b2, frows + f2
         rrows = rowset_checks(dev)
+    paths = {}
     with phase("cylinder 640x320 solve (warm-up + timed)"):
-        rep, launches = cylinder_path(dev)
+        _, paths["cylinder 640x320 banded"] = cylinder_path(dev)
+    with phase("cylinder 640x320 gather bsgs x6 solve"):
+        _, paths["cylinder 640x320 gather bsgs"] = gather_path(dev)
+    with phase(f"cylinder 640x320 gather bcsgs x3: starter, {GATHER_STEPS} "
+               "main steps"):
+        paths["cylinder 640x320 gather bcsgs, main steps"] = bcsgs_steps(dev)
     with phase(f"cylinder 640x320: {COMPARE_STEPS} main steps, fused pc vs "
                "the sequence"):
         fused_vs_sequence(dev)
-    with phase(f"cylinder {CHECK_MESH[0]}x{CHECK_MESH[1]} vs the JAX record"):
+    check_mesh = f"cylinder {CHECK_MESH[0]}x{CHECK_MESH[1]}"
+    with phase(f"{check_mesh} vs the JAX record"):
         cylinder_vs_record(dev)
+    from fvens_tpu_torch.cases.bigmesh_case import GATHER_BCSGS, GATHER_BSGS
+    for lin, blocked in ((GATHER_BSGS, True), (GATHER_BSGS, False),
+                         (GATHER_BCSGS, False)):
+        with phase(f"{check_mesh} gather {lin['pc']} "
+                   f"{'blocked' if blocked else 'classic'} vs the JAX record"):
+            cylinder_vs_record(dev, JAX_GATHER_RECORD, lin, blocked)
     with phase("bench 600-step solve"):
         cm = bench_path(dev)
     with phase("bench first-order solve"):
@@ -815,10 +1003,16 @@ def main() -> int:
             shape=f"f32 row {rs['j']} of a (96, {rs['n']}) basis",
             library="no single PyTorch call: w / clamp_min(hn) is two"),
     }
+    # each kernel's launches from the 640x320 path of this slice that runs
+    # it: the banded kernels from the banded solve, row_set from the gather
+    # solve
+    launches = dict(paths["cylinder 640x320 banded"],
+                    row_set=paths["cylinder 640x320 gather bsgs"]["row_set"])
     print("phases", json.dumps(PHASES), flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
-             launches=launches[name], **measured[name])
+             launches=launches[name], **measured[name],
+             launches_by_path={p: n[name] for p, n in paths.items()})
         for name, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

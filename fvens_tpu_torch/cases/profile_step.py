@@ -1,19 +1,27 @@
 """Where one implicit step of a solve spends its time.
 
-    python -m fvens_tpu_torch.cases.profile_step [--case bench|cylinder]
+    python -m fvens_tpu_torch.cases.profile_step \
+        [--case bench|cylinder|cylinder-gather|rowset] [--pc bsgs|bcsgs]
 
 `bench` (the default) is the bench solve of cases/bench_case.py on its
 naca0012_omesh(160, 80); `cylinder` is the main solve of
-cases/bigmesh_case.py on its 640x320 mesh, after the first-order starter.
-Runs WARM_STEPS steps, once through the CUDA kernels and once through the
-plain banded twins (pallas=False; blocked GMRES's basis appends stay the
-row_set kernel, which, as in the JAX package, no option turns off), then
-at that state:
+cases/bigmesh_case.py on its 640x320 mesh, after the first-order starter;
+`cylinder-gather` the same on the gather path (GATHER_BSGS, or with
+`--pc bcsgs` GATHER_BCSGS), whose matvec and preconditioner are plain
+PyTorch, so it runs once. `rowset` times the row_set kernel alone
+(rowset_profile). The others run WARM_STEPS steps, once through the CUDA
+kernels and once through the plain banded twins (pallas=False; blocked
+GMRES's basis appends stay the row_set kernel, which, as in the JAX
+package, no option turns off), then at that state:
 
   1. times each phase of one step with the host clock around work that
      ends in a device synchronisation, median of 5 (GMRES and the step:
      of 3): the residual, the Jacobian with its pseudo-time term, the
-     banded operators, one matvec, one preconditioner apply, the GMRES
+     operator build (banded: the band blocks; gather: the slot operands
+     and the preconditioner's set-up, make_bsr_matvec and
+     make_preconditioner), one matvec, one preconditioner apply (on the
+     gather path also the matvec's slot gather four ways, device time), the
+     GMRES
      solve and the whole step. Where gmres runs blocked, also one blocked
      MGS pass over the mean number of filled basis rows of that solve,
      one basis append (row_set) and one host copy of two norms, median
@@ -49,7 +57,7 @@ from ..solver import linear
 from ..solver import rowset_kernels as rk
 from ..solver.banded import make_banded_bsgs
 from ..solver.linear import gmres
-from ..solver.steady import banded_operators
+from ..solver.steady import GatherOperators, banded_operators
 from . import bigmesh_case
 from .bench_case import BENCH_MESH, bench_solver
 from .casesolvers import build_space, initial_state
@@ -57,7 +65,9 @@ from .casesolvers import build_space, initial_state
 # past the first transient (bench: CFL ~60, 13 Krylov iterations with the
 # kernel; cylinder: CFL ~1,860, 56 iterations)
 WARM_STEPS = 20
-MESHES = {"bench": BENCH_MESH, "cylinder": bigmesh_case.BIGMESH}
+MESHES = {"bench": BENCH_MESH, "cylinder": bigmesh_case.BIGMESH,
+          "cylinder-gather": bigmesh_case.BIGMESH}
+GATHER = {"bsgs": bigmesh_case.GATHER_BSGS, "bcsgs": bigmesh_case.GATHER_BCSGS}
 
 
 def _sync(dev):
@@ -122,13 +132,14 @@ def _on_device(e):
     return e.device_type == torch.autograd.DeviceType.CUDA
 
 
-def _warm_state(dev, case: str, mesh, warm: int, pallas: bool):
+def _warm_state(dev, case: str, mesh, warm: int, pallas: bool, lin: dict):
     """(main solver, mesh, state after `warm` main steps, SolveInfo)."""
     if case == "bench":
         solver, cm = bench_solver(dev, mesh=mesh, pallas=pallas)
         u = initial_state(solver.space, cm)
     else:
-        fcase, cm, u = bigmesh_case.build_case(dev, *mesh, pallas=pallas)
+        fcase, cm, u = bigmesh_case.build_case(dev, *mesh, pallas=pallas,
+                                               **lin)
         u = fcase.execute_starter(cm, u)
         solver = fcase._make_solver(build_space(fcase.cfg), fcase.cfg.main)
     u, info = solver.solve(cm, u, max_steps=warm)
@@ -203,30 +214,67 @@ def _pc_sweep_times(solver, ops, v):
     return rec
 
 
-def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
+def _slot_gather_ways(mesh, x):
+    """Device ms of the gather matvec's (NC, 5) slot gather of x, four ways
+    in plain PyTorch, each held equal to x[idx]: x[idx], index_select of
+    rows, gather with an expanded index, and take of element indices (the
+    solver's, linear._gather_rows)."""
+    NC, V = x.shape
+    self_idx = torch.arange(NC, dtype=mesh.cell_nbrs.dtype, device=x.device)
+    idx = torch.cat([self_idx[:, None], linear._nbrs_in_range(mesh)], dim=1)
+    flat = idx.reshape(-1)
+    expanded = flat[:, None].expand(-1, V)
+    elems = linear._row_elements(idx, V)
+    ways = {"index": lambda: x[idx],
+            "index_select": lambda: torch.index_select(x, 0, flat),
+            "gather_expanded": lambda: torch.gather(x, 0, expanded),
+            "take": lambda: torch.take(x, elems)}
+    want = x[idx]
+    out = {}
+    for name, fn in ways.items():
+        if not torch.equal(fn().reshape(want.shape), want):
+            raise RuntimeError(f"slot gather '{name}' differs from x[idx]")
+        out[name] = device_ms(fn)
+    return out
+
+
+def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench",
+            pc: str = "bsgs"):
     """Phase times and a one-step trace of the `case` solve ("bench":
-    naca0012_omesh `mesh`; "cylinder": cylinder_omesh `mesh`, main solve)
+    naca0012_omesh `mesh`; "cylinder": cylinder_omesh `mesh`, main solve;
+    "cylinder-gather": the same on the gather path with `pc`, GATHER[pc])
     after `warm` steps, through the kernels (`pallas`) or the twins."""
-    solver, cm, u, info = _warm_state(dev, case, mesh, warm, pallas)
+    gather = case == "cylinder-gather"
+    lin = GATHER[pc] if gather else {}
+    solver, cm, u, info = _warm_state(dev, case, mesh, warm, pallas, lin)
     cfl, rtol = info.history[-1][3], solver.lin.rtol
     bl = solver._banded(cm)
     lmesh = cm.to(torch.float32)
     sp = solver.space
     rec = dict(case=case, mesh=list(mesh), pallas=pallas, warm_steps=warm,
-               cfl=cfl)
+               cfl=cfl, banded=bl is not None, pc=solver.lin.pc,
+               pc_sweeps=solver.lin.pc_sweeps)
     rec["residual_ms"], (rhs, dt) = sync_ms(
         dev, lambda: sp.compute_residual(cm, u, True))
     lu, lrhs, ldt = u.float(), rhs.float(), dt.float()
     rec["jacobian_ms"], jac = sync_ms(dev, lambda: jacmod.add_pseudotime_term(
         lmesh, sp.assemble_jacobian(lmesh, lu), cfl, ldt))
-    rec["operators_ms"], ops = sync_ms(dev, lambda: banded_operators(bl, jac))
-    mv, pc = solver._linear_operators(ops)
+    if gather:
+        ops = GatherOperators(lmesh, jac)
+        rec["operators_ms"], (mv, pc_fn) = sync_ms(
+            dev, lambda: solver._linear_operators(ops))
+    else:
+        rec["operators_ms"], ops = sync_ms(
+            dev, lambda: banded_operators(bl, jac))
+        mv, pc_fn = solver._linear_operators(ops)
     rec["matvec_ms"], _ = sync_ms(dev, lambda: mv(lrhs), 50)
-    rec["pc_ms"], _ = sync_ms(dev, lambda: pc(lrhs), 50)
-    if pallas and dev.type == "cuda":
+    rec["pc_ms"], _ = sync_ms(dev, lambda: pc_fn(lrhs), 50)
+    if gather and dev.type == "cuda":
+        rec["slot_gather_device_ms"] = _slot_gather_ways(lmesh, lrhs)
+    if pallas and dev.type == "cuda" and not gather:
         rec.update(_pc_variants(dev, solver, ops, lrhs))
     rec["gmres_ms"], (_, its, _) = sync_ms(dev, lambda: gmres(
-        mv, lrhs, torch.zeros_like(lrhs), pc, restart=solver.lin.restart,
+        mv, lrhs, torch.zeros_like(lrhs), pc_fn, restart=solver.lin.restart,
         maxiter=solver.lin.maxiter, rtol=rtol), 3)
     rec["gmres_iters"] = its
     rec["gmres_ms_per_iter"] = rec["gmres_ms"] / max(its, 1)
@@ -251,7 +299,7 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
             dev, lambda: torch.stack([hn, hn]).cpu(), 20)
     rec["step_ms"], _ = sync_ms(dev, lambda: solver._step(
         cm, u, cfl, rtol, lmesh=lmesh, bl=bl), 3)
-    if pallas and dev.type == "cuda":
+    if pallas and dev.type == "cuda" and not gather:
         # the step with each pc, in turns (fused, sequence, then back),
         # median of 3 each
         for name in ("fused", "sequence", "sequence", "fused"):
@@ -277,7 +325,7 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
     ka = sorted((e for e in prof.key_averages() if _on_device(e)),
                 key=lambda e: -_device_us(e))
     print("trace", json.dumps(dict(
-        case=case, pallas=pallas, traced_wall_ms=wall * 1e3,
+        case=case, pc=solver.lin.pc, pallas=pallas, traced_wall_ms=wall * 1e3,
         device_busy_ms=sum(_device_us(e) for e in ka) / 1e3,
         kernel_launches=bk.banded_apply.launches - n0,
         bsgs_launches=bk.bsgs_apply.launches - f0,
@@ -286,15 +334,101 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench"):
                        for e in ka[:15]])), flush=True)
 
 
+ROWSET_SIZES = (262_528, 819_200, 1_638_400)
+
+
+def _host_us(fn, n=2000):
+    """Host microseconds per call of fn() over n calls (then a sync)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def rowset_profile(dev):
+    """row_set (K2) on a (96, n) basis, row 37, at ROWSET_SIZES, f32 and
+    f64: device time per launch (device_ms) and call time (CUDA events
+    around one call, median of 50); and at n = 819,200 f32 where the host
+    time of a call goes: the checks, the stream lookup (the raw stream the
+    wrapper reads, and torch.cuda.current_stream), the pointers, ctypes (a
+    one-argument C call; the launcher with n = 0, which stops after
+    cudaGetDevice), the launch, the whole wrapper. Prints one "row_set"
+    JSON line each, and one "row_set host" line."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    idx = dev.index
+    for n in ROWSET_SIZES:
+        for dtype in (torch.float32, torch.float64):
+            V = torch.randn(96, n, device=dev, dtype=dtype, generator=g)
+            w = torch.randn(n, device=dev, dtype=dtype, generator=g)
+            hn = linear._norm2(w)
+            rec = dict(n=n, dtype=str(dtype)[6:],
+                       device_ms=device_ms(lambda: rk.row_set(V, 37, w, hn),
+                                           n=200),
+                       call_ms=_event_ms(lambda: rk.row_set(V, 37, w, hn)))
+            print("row_set", json.dumps(rec), flush=True)
+            if n != 819_200 or dtype != torch.float32:
+                continue
+            fn = rk._FNS[dtype]
+            lib = rk._LIB[0]
+            row = V.data_ptr() + 37 * V.stride(0) * V.element_size()
+            args = (row, w.data_ptr(), hn.data_ptr())
+            raw = torch._C._cuda_getCurrentRawStream
+            stream = raw(idx)
+            split = dict(
+                check_us=_host_us(lambda: rk._check(V, 37, w, hn)),
+                raw_stream_us=_host_us(lambda: raw(idx)),
+                current_stream_us=_host_us(
+                    lambda: torch.cuda.current_stream(idx).cuda_stream),
+                pointers_us=_host_us(lambda: (
+                    V.data_ptr() + 37 * V.stride(0) * V.element_size(),
+                    w.data_ptr(), hn.data_ptr(), V.shape[1])),
+                ctypes_one_arg_us=_host_us(
+                    lambda: lib.fvens_row_set_error_string(0)),
+                ctypes_get_device_us=_host_us(
+                    lambda: fn(idx, *args, 0, rk.TINY, stream)),
+                launch_us=_host_us(
+                    lambda: fn(idx, *args, n, rk.TINY, stream)),
+                row_set_us=_host_us(lambda: rk.row_set(V, 37, w, hn)))
+            print("row_set host", json.dumps(split), flush=True)
+
+
+def _event_ms(fn, runs=50):
+    """Median CUDA-event time of one call of fn() in ms, after a warm-up."""
+    fn()
+    ts = []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        ev[1].synchronize()
+        ts.append(ev[0].elapsed_time(ev[1]))
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=sorted(MESHES), default="bench")
+    ap.add_argument("--case", choices=sorted(MESHES) + ["rowset"],
+                    default="bench")
+    ap.add_argument("--pc", choices=sorted(GATHER), default="bsgs",
+                    help="the preconditioner of --case cylinder-gather")
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
     print(torch.cuda.get_device_name(dev), flush=True)
-    for pallas in (True, False):
-        profile(dev, MESHES[args.case], WARM_STEPS, pallas, args.case)
+    if args.case == "rowset":
+        rk.load_library()
+        rowset_profile(dev)
+        return
+    gather = args.case == "cylinder-gather"
+    for pallas in (True,) if gather else (True, False):
+        profile(dev, MESHES[args.case], WARM_STEPS, pallas, args.case,
+                args.pc)
 
 
 if __name__ == "__main__":

@@ -380,10 +380,11 @@ def compile_mesh_arrays(md: MeshData, bcs: Sequence[BCSpec] = (),
 
 def compile_mesh(md: MeshData, bcs: Sequence[BCSpec] = (),
                  dtype: torch.dtype = torch.float64,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = "cuda",
                  pad_cells: int = 8, pad_faces: int = 8,
                  validate: bool = True) -> CompiledMesh:
-    """Compile raw mesh + BC spec into tensors of `dtype` on `device`."""
+    """Compile raw mesh + BC spec into tensors of `dtype` on `device` (the
+    card unless the caller asks for the CPU)."""
     arrays = compile_mesh_arrays(md, bcs, pad_cells=pad_cells,
                                  pad_faces=pad_faces, validate=validate)
     return CompiledMesh.from_numpy(arrays, dtype=dtype, device=device)

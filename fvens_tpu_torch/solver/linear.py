@@ -1,5 +1,5 @@
 """Linear solver stack of the main path: slot-block Jacobian operators, the
-block-Jacobi inverse and a restarted flexible GMRES.
+block preconditioners and a restarted flexible GMRES.
 
 Replaces PETSc (MPIBAIJ + FGMRES(30) + bjacobi/ILU0, FVENS
 src/linalg/alinalg.cpp + testcases/defaults.solverc). The vectors, the
@@ -10,8 +10,10 @@ convergence test needs anyway).
 
 GMRES has both of the JAX package's paths: the classic CGS2 one and, from
 262,144 vector elements, the blocked low-traffic one, whose basis appends
-are the CUDA kernel of solver/rowset_kernels.py. The gather-path
-preconditioners (bcsgs, ilu0, bline, amg) are still to be ported.
+are the CUDA kernel of solver/rowset_kernels.py. The gather path's
+operators are plain PyTorch: the slot matvec and the none / bjacobi / bsgs
+/ bcsgs preconditioners (make_preconditioner); ilu0, bline and amg are
+still to be ported.
 """
 
 from __future__ import annotations
@@ -45,6 +47,40 @@ def _nbrs_in_range(mesh):
     return torch.clamp_max(mesh.cell_nbrs, mesh.NC - 1)
 
 
+def _row_elements(idx, V: int):
+    """The flat element indices of rows `idx` of a contiguous (n, V)
+    tensor, for _gather_rows. Built once per Newton step."""
+    cols = torch.arange(V, dtype=idx.dtype, device=idx.device)
+    return (idx.reshape(-1, 1) * V + cols).reshape(-1)
+
+
+def _gather_rows(x, elems, shape):
+    """x[idx] for a contiguous (n, V) x, with elems = _row_elements(idx, V)
+    and idx of `shape`: the same values, gathered element by element. On
+    CUDA PyTorch gathers 16-byte rows (x[idx], index_select) with its
+    vectorized gather kernel, one 32-thread block per index: 0.5 ms for the
+    (NC, 5) gather of the 640x320 matvec on an H100 (PERF.md section 5;
+    profile_step --case cylinder-gather)."""
+    return torch.take(x, elems).reshape(*shape, x.shape[1])
+
+
+def _slot_operand(blocks):
+    """(R,S,V,V) per-slot blocks as the (R,V,S*V) operand of _slot_apply:
+    row i of a cell's blocks side by side, slot by slot. Built once per
+    Newton step, so that a slot contraction is one batched product and not
+    a permuted copy of the blocks on every call."""
+    R, S, V, _ = blocks.shape
+    return blocks.permute(0, 2, 1, 3).reshape(R, V, S * V)
+
+
+def _slot_apply(op, xg):
+    """sum_k B_k x_k per row: op (R,V,S*V) from _slot_operand, xg (R,S,V)
+    the gathered slot vectors; the contraction einsum("rkij,rkj->ri")
+    makes, as one batched product."""
+    R, S, V = xg.shape
+    return torch.bmm(op, xg.reshape(R, S * V, 1)).reshape(R, V)
+
+
 def make_bsr_matvec(mesh, jac: BlockJacobian) -> Callable:
     """Returns mv(x) = J x as one (NC,5) row gather + one batched block
     contraction: the diagonal joins the neighbour slots as a fifth
@@ -54,12 +90,106 @@ def make_bsr_matvec(mesh, jac: BlockJacobian) -> Callable:
     self_idx = torch.arange(NC, dtype=mesh.cell_nbrs.dtype,
                             device=jac.D.device)
     idx = torch.cat([self_idx[:, None], _nbrs_in_range(mesh)], dim=1)
-    blocks = torch.cat([jac.D[:, None], jac.N], dim=1)       # (NC,5,V,V)
+    elems = _row_elements(idx, jac.D.shape[-1])
+    op = _slot_operand(torch.cat([jac.D[:, None], jac.N], dim=1))
 
     def mv(x):
-        return torch.einsum("ckij,ckj->ci", blocks, x[idx])
+        return _slot_apply(op, _gather_rows(x, elems, idx.shape))
 
     return mv
+
+
+PRECONDITIONERS = ("none", "bjacobi", "bsgs", "bcsgs")
+UNPORTED_PRECONDITIONERS = ("ilu0", "bline", "amg")
+
+
+def make_preconditioner(mesh, jac: BlockJacobian, kind: str = "bjacobi",
+                        sweeps: int = 4) -> Callable:
+    """Returns pc(v) ~= J^-1 v on the gather path, as the JAX package's
+    make_preconditioner:
+
+      - none: v;
+      - bjacobi: z = D^-1 v;
+      - bsgs: `sweeps` block-Jacobi sweeps z' = D^-1 v - (D^-1 N) z_nbr
+        from z = D^-1 v, each one (NC,4) slot gather and one batched block
+        product;
+      - bcsgs: multicolor block SGS (make_colored_sgs), `sweeps` forward and
+        backward color passes.
+
+    ilu0, bline and amg are not ported yet (ROADMAP queue 1 item 8) and
+    raise NotImplementedError; any other name raises ValueError."""
+    if kind == "none":
+        return lambda v: v
+    if kind in UNPORTED_PRECONDITIONERS:
+        raise NotImplementedError(f"not ported yet: pc='{kind}' (ROADMAP "
+                                  "queue 1 item 8)")
+    if kind not in PRECONDITIONERS:
+        raise ValueError(f"unknown preconditioner '{kind}'")
+    Dinv = block_jacobi_inverse(jac.D)
+    apply_dinv = lambda v: torch.einsum("cij,cj->ci", Dinv, v)
+    if kind == "bjacobi":
+        return apply_dinv
+    if kind == "bcsgs":
+        return make_colored_sgs(mesh, jac, Dinv, jac.N, sweeps)
+    # the defect-correction sweep z + D^-1(v - J z) reduces exactly to
+    # block-Jacobi z' = D^-1 v - (D^-1 N) z_nbr (J = D + N)
+    DN = _slot_operand(torch.einsum("cij,ckjl->ckil", Dinv, jac.N))
+    nbrs = _nbrs_in_range(mesh)
+    elems = _row_elements(nbrs, jac.D.shape[-1])
+
+    def pc(v):
+        dv = apply_dinv(v)
+        z = dv
+        for _ in range(sweeps):
+            z = dv - _slot_apply(DN, _gather_rows(z, elems, nbrs.shape))
+        return z
+    return pc
+
+
+def make_colored_sgs(mesh, jac: BlockJacobian, Dinv, blocks,
+                     sweeps: int = 1) -> Callable:
+    """Multicolor block symmetric Gauss-Seidel, the JAX package's
+    make_colored_sgs: cells of one adjacency color share no faces, so each
+    color updates as one batched block step with the freshest neighbour
+    values. One sweep = forward + backward color passes.
+
+    The per-color gathers and the D^-1 folding (z_c = (D^-1 v)_c -
+    sum_k (D^-1 N)_ck z_nbr) are precomputed once per Newton step, so one
+    color update is one row gather of z, one batched block product and one
+    row scatter (index_copy_ into z, which pc owns).
+
+    Colors differ in size, and mesh.color_rows pads the shorter ones with
+    NC-1 (greedy_coloring). When n_cells is a multiple of 8, NC-1 is a real
+    cell, and a padded slot updates it in a color it does not belong to,
+    as in the JAX package, whose scatter this reproduces unmasked. The
+    duplicate rows of one color compute the same value from the same
+    inputs, so the order in which index_copy_ writes them (undefined on
+    CUDA) does not change the result."""
+    rows_all = mesh.color_rows                       # (ncol, R)
+    ncol = mesh.n_colors
+    nbrs_in = _nbrs_in_range(mesh)
+    V = Dinv.shape[-1]
+    rows = [rows_all[c] for c in range(ncol)]
+    row_elems = [_row_elements(r, V) for r in rows]
+    col_nbrs = [nbrs_in[r] for r in rows]
+    col_elems = [_row_elements(n, V) for n in col_nbrs]
+    col_DN = [_slot_operand(torch.einsum("rij,rkjl->rkil", Dinv[r],
+                                         blocks[r])) for r in rows]
+    order = list(range(ncol)) + list(range(ncol - 1, -1, -1))
+
+    def pc(v):
+        dv = torch.einsum("cij,cj->ci", Dinv, v)     # one whole-mesh solve
+        col_dv = [_gather_rows(dv, e, r.shape)
+                  for e, r in zip(row_elems, rows)]
+        z = torch.zeros_like(v)
+        for _ in range(sweeps):
+            for c in order:                          # forward, backward
+                zn = _gather_rows(z, col_elems[c], col_nbrs[c].shape)
+                z.index_copy_(0, rows[c], col_dv[c]
+                              - _slot_apply(col_DN[c], zn))
+        return z
+
+    return pc
 
 
 def block_jacobi_inverse(D):

@@ -14,16 +14,23 @@ reference's SteadyBackwardEulerSolver (FVENS src/ode/aodesolver.cpp:136-638):
 
 Each step runs eagerly on the tensors' device; the scalar control flow (CFL
 ramp, Krylov forcing, recovery) stays on the host, fed by one residual
-fetch per step. The linear solve takes the banded path
-(LinearSolverConfig.banded with pc bsgs): with LinearSolverConfig.pallas and
-CUDA tensors the matvec is one launch of the banded-apply kernel and the
-whole bsgs preconditioner apply (D^-1 v and the sweeps) one launch of the
-fused bsgs kernel, both in solver/banded_kernels.py; otherwise (pallas=False,
-or CPU tensors) the plain PyTorch twins of solver/banded.py.
+fetch per step. The linear solve takes one of the JAX package's two paths
+(its steady.py:350-424):
 
-Not ported yet, and refused with NotImplementedError: the gather-path
-preconditioners, the banded bjacobi preconditioner, matrix-free operators,
-warm start, GCRO-DR recycling,
+  - banded, where LinearSolverConfig.banded is set, the mesh is
+    band-coverable and pc is bjacobi or bsgs: with LinearSolverConfig.pallas
+    and CUDA tensors the matvec is one launch of the banded-apply kernel
+    and the whole bsgs preconditioner apply (D^-1 v and the sweeps) one
+    launch of the fused bsgs kernel, both in solver/banded_kernels.py;
+    otherwise (pallas=False, or CPU tensors) the plain PyTorch twins of
+    solver/banded.py. The bjacobi preconditioner is the plain D^-1 v
+    contraction on both;
+  - the gather path everywhere else (the JAX package's default): the slot
+    matvec and make_preconditioner (none, bjacobi, bsgs, bcsgs) of
+    solver/linear.py, plain PyTorch.
+
+Not ported yet, and refused with NotImplementedError: the ilu0, bline and
+amg preconditioners, matrix-free operators, warm start, GCRO-DR recycling,
 on-device chunked stepping (device_steps), pipelined stepping, baked-mesh
 programs and checkpoint/resume.
 """
@@ -44,7 +51,9 @@ from .banded import (BandedStructure, banded_blocks, banded_dn_blocks,
                      banded_structure, make_banded_bsgs, make_banded_matvec)
 from .banded_kernels import (make_banded_bsgs_kernel,
                              make_banded_matvec_kernel)
-from .linear import block_jacobi_inverse, gmres
+from .linear import (UNPORTED_PRECONDITIONERS, BlockJacobian,
+                     block_jacobi_inverse, gmres, make_bsr_matvec,
+                     make_preconditioner)
 from .relaxation import get_update_scheme
 
 
@@ -90,6 +99,15 @@ def banded_operators(bl, jac) -> BandedOperators:
     Dinv = block_jacobi_inverse(jac.D)
     return BandedOperators(bl, jac.D, Dinv, banded_blocks(bl, jac.N),
                            banded_dn_blocks(bl, Dinv, jac.N))
+
+
+@dataclasses.dataclass
+class GatherOperators:
+    """The slot-gather Krylov operators of one implicit step: the Jacobian
+    in per-cell-slot block form on the mesh whose neighbour slots they
+    gather (at the Krylov precision)."""
+    mesh: object           # the CompiledMesh
+    jac: BlockJacobian
 
 
 def residual_norm(mesh, rhs):
@@ -175,24 +193,22 @@ class SteadyBackwardEuler:
             ("LinearSolverConfig.deflation_k > 0", lin.deflation_k > 0),
             ("LinearSolverConfig.matrix_free", lin.matrix_free),
             ("checkpoint_path", bool(self.checkpoint_path)),
-            ("LinearSolverConfig.banded=False (the gather path)",
-             not lin.banded),
-            (f"pc='{lin.pc}' (banded bsgs only)", lin.pc != "bsgs"),
+            (f"pc='{lin.pc}' (ROADMAP queue 1 item 8)",
+             lin.pc in UNPORTED_PRECONDITIONERS),
         ) if on]
         if missing:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(missing))
 
     def _banded(self, mesh):
-        """Host-side band analysis, cached per mesh."""
+        """Host-side band analysis, cached per mesh (LinearSolverConfig.
+        banded only). None when banded is off or the mesh is not
+        band-coverable: the step then takes the gather path."""
+        if not self.lin.banded:
+            return None
         cache = getattr(self, "_banded_cache", None)
         if cache is None or cache[0] is not mesh:
-            bl = banded_structure(mesh)
-            if bl is None:
-                raise NotImplementedError(
-                    "mesh is not fully band-coverable; the gather-path "
-                    "linear solver is not ported yet")
-            self._banded_cache = (mesh, bl)
+            self._banded_cache = (mesh, banded_structure(mesh))
         return self._banded_cache[1]
 
     def _kernel_on(self, x):
@@ -202,9 +218,11 @@ class SteadyBackwardEuler:
         return bool(self.lin.pallas) and x.is_cuda
 
     def step_operators(self, mesh, u, cfl, lmesh=None, bl=None):
-        """The residual at state u and the banded Krylov system of one
-        implicit step at `cfl`: (rhs, lrhs, ops) with rhs at u's dtype and
-        lrhs, ops at the Krylov precision.
+        """The residual at state u and the Krylov system of one implicit
+        step at `cfl`: (rhs, lrhs, ops) with rhs at u's dtype, lrhs and ops
+        at the Krylov precision, and ops BandedOperators where the banded
+        path applies (band analysis `bl`, pc bjacobi or bsgs), else
+        GatherOperators.
 
         `lmesh` (optional): precomputed f32 mesh for the mixed-precision
         path (LinearSolverConfig.mixed_precision): the Newton DIRECTION
@@ -226,20 +244,34 @@ class SteadyBackwardEuler:
         jac = self.space.assemble_jacobian(lmesh, lu)
         # a Python cfl times an f32 tensor rounds cfl to f32 first
         jac = jacmod.add_pseudotime_term(lmesh, jac, cfl, ldt)
-        return rhs, lrhs, banded_operators(bl, jac)
+        if bl is not None and self.lin.pc in ("bjacobi", "bsgs"):
+            return rhs, lrhs, banded_operators(bl, jac)
+        return rhs, lrhs, GatherOperators(lmesh, jac)
 
     def _linear_operators(self, ops):
-        """(matvec, pc) of the banded path: the CUDA kernels' (the matvec
-        and the fused bsgs apply) or the plain twins'."""
-        if self._kernel_on(ops.D):
-            return (make_banded_matvec_kernel(ops.D, ops.Bt, ops.bl.offsets),
-                    make_banded_bsgs_kernel(ops.Dinv, ops.DNbt,
-                                            ops.bl.offsets,
-                                            self.lin.pc_sweeps,
-                                            ops.bl.support))
-        return (make_banded_matvec(ops.D, ops.Bt, ops.bl.offsets),
-                make_banded_bsgs(ops.Dinv, ops.DNbt, ops.bl.offsets,
-                                 self.lin.pc_sweeps))
+        """(matvec, pc): on the gather path the slot matvec and
+        make_preconditioner; on the banded path the CUDA kernels' (the
+        matvec and the fused bsgs apply) or the plain twins', with bjacobi
+        the plain D^-1 v contraction on both."""
+        lin = self.lin
+        if isinstance(ops, GatherOperators):
+            return (make_bsr_matvec(ops.mesh, ops.jac),
+                    make_preconditioner(ops.mesh, ops.jac, lin.pc,
+                                        lin.pc_sweeps))
+        kernel = self._kernel_on(ops.D)
+        if kernel:
+            mv = make_banded_matvec_kernel(ops.D, ops.Bt, ops.bl.offsets)
+        else:
+            mv = make_banded_matvec(ops.D, ops.Bt, ops.bl.offsets)
+        if lin.pc == "bjacobi":
+            Dinv = ops.Dinv
+            return mv, lambda v: torch.einsum("cij,cj->ci", Dinv, v)
+        if kernel:
+            return mv, make_banded_bsgs_kernel(ops.Dinv, ops.DNbt,
+                                               ops.bl.offsets, lin.pc_sweeps,
+                                               ops.bl.support)
+        return mv, make_banded_bsgs(ops.Dinv, ops.DNbt, ops.bl.offsets,
+                                    lin.pc_sweeps)
 
     def _step(self, mesh, u, cfl, rtol, omega_cap=1.0, lmesh=None, bl=None):
         """One implicit pseudo-time step. Returns (unew, res, lin_iters) with

@@ -67,7 +67,7 @@ def test_structure_matches_jax_and_keeps_seam_bands():
 def test_twins_match_jax_banded_f64():
     jm, tm, D, N = _ops()
     blj, blt = jb.banded_structure(jm), tb.banded_structure(tm)
-    Jt = interop.jacobian_from_numpy(D, N)
+    Jt = interop.jacobian_from_numpy(D, N, device="cpu")
     Btj = jb.banded_blocks(blj, jnp.asarray(N))
     Btt = tb.banded_blocks(blt, Jt.N)
     assert Btt.is_contiguous()
@@ -94,7 +94,7 @@ def test_banded_matvec_is_the_slot_gather_matvec_f64():
     agrees with the port's slot-gather matvec, which agrees with the JAX
     package's, to 1e-13 of max|y|."""
     jm, tm, D, N = _ops()
-    Jt = interop.jacobian_from_numpy(D, N)
+    Jt = interop.jacobian_from_numpy(D, N, device="cpu")
     x = np.random.default_rng(7).standard_normal((tm.NC, 4))
     yg = make_bsr_matvec(tm, Jt)(torch.from_numpy(x))
     Jj = JaxBlockJacobian(D=jnp.asarray(D), N=jnp.asarray(N))
@@ -110,7 +110,7 @@ def test_kernel_operators_match_pallas_interpret_f32():
     jm, tm, D, N = _ops(np.float32)
     blj, blt = jb.banded_structure(jm), tb.banded_structure(tm)
     Dj, Nj = jnp.asarray(D), jnp.asarray(N)
-    Jt = interop.jacobian_from_numpy(D, N)
+    Jt = interop.jacobian_from_numpy(D, N, device="cpu")
     Dinv_j = jax_bjinv(Dj)
     Dinv_t = block_jacobi_inverse(Jt.D)
     x = np.random.default_rng(6).standard_normal((tm.NC, 4)) \
@@ -226,7 +226,7 @@ def test_fused_pc_builder_matches_jax(dtype):
     f64 = dtype.startswith("f64")
     jm, tm, D, N = _ops(np.float64 if f64 else np.float32)
     blj, blt = jb.banded_structure(jm), tb.banded_structure(tm)
-    Jt = interop.jacobian_from_numpy(D, N)
+    Jt = interop.jacobian_from_numpy(D, N, device="cpu")
     Dinv_j = jax_bjinv(jnp.asarray(D))
     Dinv_t = block_jacobi_inverse(Jt.D)
     DNj = jb.banded_dn_blocks(blj, Dinv_j, jnp.asarray(N))

@@ -55,7 +55,7 @@ def _banded_systems(dtype, cfl):
     mv_j = jb.make_banded_matvec(Dj, jb.banded_blocks(blj, Nj), blj.offsets)
     pc_j = jb.make_banded_bsgs(Dinv_j, jb.banded_dn_blocks(blj, Dinv_j, Nj),
                                blj.offsets, 6)
-    Jt = interop.jacobian_from_numpy(D, N)
+    Jt = interop.jacobian_from_numpy(D, N, device="cpu")
     Dinv_t = block_jacobi_inverse(Jt.D)
     mv_t = tb.make_banded_matvec(Jt.D, tb.banded_blocks(blt, Jt.N),
                                  blt.offsets)

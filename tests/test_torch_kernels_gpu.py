@@ -237,22 +237,65 @@ def test_bsgs_refuses_bad_input(cuda):
     assert torch.equal(z, bk.bsgs_sequence(dinv, dn, dms, 6)(v))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,j", [(1, 0), (1000, 5), (262_528, 95),
-                                 (819_200, 1)])
-def test_row_set_matches_twin_bit_for_bit(cuda, dtype, n, j):
-    """Any n (262,528: where the TPU kernel's tile gate refuses the row),
-    any row of the (96, n) basis; in place, one launch."""
-    g = np.random.default_rng(n + j)
-    V = torch.from_numpy(g.standard_normal((96, n))).to(cuda, dtype)
-    w = torch.from_numpy(g.standard_normal(n)).to(cuda, dtype)
-    hn = torch.sqrt(torch.sum(w * w))
+def _basis(g, rows, n, dtype, dev):
+    V = torch.from_numpy(g.standard_normal((rows, n))).to(dev, dtype)
+    w = torch.from_numpy(g.standard_normal(n)).to(dev, dtype)
+    return V, w
+
+
+def _assert_row_set(V, j, w, hn):
+    """row_set(V, j, w, hn) is one launch, in place, and leaves V equal bit
+    for bit (NaN for NaN) to its twin's result: row j set, the rest as
+    they were."""
     want = rk.rowset_plain(V.clone(), j, w, hn)
     ptr, n0 = V.data_ptr(), rk.row_set.launches
     assert rk.row_set(V, j, w, hn) is V
     torch.cuda.synchronize()
     assert rk.row_set.launches == n0 + 1 and V.data_ptr() == ptr
-    assert torch.equal(V, want)
+    assert torch.equal(V.isnan(), want.isnan())
+    assert torch.equal(V.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,j", [(1, 0), (3, 2), (4, 1), (5, 3), (1023, 7),
+                                 (1000, 5), (262_528, 95), (819_200, 1)])
+def test_row_set_matches_twin_bit_for_bit(cuda, dtype, n, j):
+    """Any n (262,528: where the TPU kernel's tile gate refuses the row;
+    n = 3, 5, 1023: rows that start off a 16-byte boundary, with a scalar
+    head and tail), any row of the (96, n) basis; in place, one launch."""
+    g = np.random.default_rng(n + j)
+    V, w = _basis(g, 96, n, dtype, cuda)
+    _assert_row_set(V, j, w, torch.sqrt(torch.sum(w * w)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1001, 4099, 65_537])
+def test_row_set_misaligned_rows(cuda, dtype, n):
+    """Odd row lengths: every row of the basis starts at another offset
+    from a 16-byte boundary. w is either a fresh tensor (aligned, so its
+    alignment differs from the row's and it is read with scalar loads) or
+    a row of another basis of the same shape (the same offset as the
+    row)."""
+    g = np.random.default_rng(n)
+    V, _ = _basis(g, 8, n, dtype, cuda)
+    W, w = _basis(g, 8, n, dtype, cuda)
+    for j in range(8):
+        for wj in (w, W[j]):
+            _assert_row_set(V, j, wj, torch.sqrt(torch.sum(wj * wj)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("hn", [0.0, float("nan"), float("inf")])
+def test_row_set_special_norms(cuda, dtype, hn):
+    """A zero norm is clamped at 1e-300 in f64 and at 0 in f32, a NaN norm
+    stays NaN and an infinite one gives zeros (NaN where w is infinite),
+    as in the twin; w holds zeros and infinities too."""
+    g = np.random.default_rng(7)
+    for n in (5, 819_200):
+        V, w = _basis(g, 16, n, dtype, cuda)
+        w[0] = 0.0
+        w[-1] = float("inf")
+        _assert_row_set(V, 3, w, torch.tensor(hn, device=cuda, dtype=dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -74,7 +74,7 @@ def test_compiled_mesh_fields_equal(name):
     make, bcs = MESHES[name]
     md = make(tgen)
     jm = jax_compile_mesh(make(jgen), bcs, dtype=jnp.float64)
-    tm = compile_mesh(md, bcs, dtype=torch.float64)
+    tm = compile_mesh(md, bcs, dtype=torch.float64, device="cpu")
     for f in tensor_fields():
         a, t = np.asarray(getattr(jm, f)), getattr(tm, f)
         want = torch.int64 if f in INDEX_FIELDS else torch.float64
@@ -91,8 +91,8 @@ def test_mesh_from_numpy_and_cast():
                           dtype=jnp.float64)
     fields = {f: np.asarray(getattr(jm, f)) for f in tensor_fields()}
     fields.update({f: getattr(jm, f) for f in META_FIELDS})
-    a = interop.mesh_from_numpy(fields)
-    b = compile_mesh(md, NACA_BCS)
+    a = interop.mesh_from_numpy(fields, device="cpu")
+    b = compile_mesh(md, NACA_BCS, device="cpu")
     for f in tensor_fields():
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     m32 = b.to(torch.float32)

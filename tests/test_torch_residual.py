@@ -39,12 +39,18 @@ from fvens_tpu_torch.mesh import compile_mesh
 from fvens_tpu_torch.solver import jacobian as tjac
 
 
+def _state(u, dtype=None):
+    """The JAX state as the port's tensor on the CPU."""
+    return interop.state_from_numpy(u, dtype, "cpu")
+
+
 @functools.lru_cache(maxsize=None)
 def _meshes(ni, nj):
     cfg = bench_config()
     md = naca0012_omesh(ni, nj)
     return (jax_compile_mesh(md, cfg.bcs, dtype=jnp.float64),
-            compile_mesh(md, cfg.bcs, dtype=torch.float64))
+            compile_mesh(md, cfg.bcs, dtype=torch.float64,
+                         device="cpu"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,7 +94,8 @@ def cyl_meshes(ni, nj):
     cfg = cyl_config()
     md = cylinder_omesh(ni, nj, stretch=1.15 ** (20.0 / nj))
     return (jax_compile_mesh(md, cfg.bcs, dtype=jnp.float64),
-            compile_mesh(md, cfg.bcs, dtype=torch.float64))
+            compile_mesh(md, cfg.bcs, dtype=torch.float64,
+                         device="cpu"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,12 +117,12 @@ def test_residual_and_timesteps_match_jax():
     jm, tm, js, ts, u = _case()
     _, res, res_only, _ = jax_space()
     rj, dj = res(jm, jnp.asarray(u))
-    rt, dt = ts.compute_residual(tm, interop.state_from_numpy(u), True)
+    rt, dt = ts.compute_residual(tm, _state(u), True)
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-12,
                                atol=1e-12 * float(jnp.abs(rj).max()))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-12)
     r2j = res_only(jm, jnp.asarray(u))
-    r2t, none = ts.compute_residual(tm, interop.state_from_numpy(u), False)
+    r2t, none = ts.compute_residual(tm, _state(u), False)
     assert none is None
     _close(r2j, r2t.numpy(), 1e-12)
 
@@ -128,11 +135,11 @@ def test_first_order_residual_matches_jax():
     ts1 = build_space(bench_config(), order2=False)
     rj, dj = jax.jit(lambda m, v: js1.compute_residual(m, v, True))(
         jm, jnp.asarray(u))
-    rt, dt = ts1.compute_residual(tm, interop.state_from_numpy(u), True)
+    rt, dt = ts1.compute_residual(tm, _state(u), True)
     _close(rj, rt.numpy(), 1e-12)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-12)
     r2, _ = build_space(bench_config()).compute_residual(
-        tm, interop.state_from_numpy(u), True)
+        tm, _state(u), True)
     assert not torch.allclose(r2, rt)          # second order differs
 
 
@@ -140,7 +147,7 @@ def test_jacobian_blocks_match_jax():
     jm, tm, js, ts, u = _case(seed=1)
     _, res, _, jac = jax_space()
     Jj = jac(jm, jnp.asarray(u))
-    Jt = ts.assemble_jacobian(tm, interop.state_from_numpy(u))
+    Jt = ts.assemble_jacobian(tm, _state(u))
     _close(Jj.D, Jt.D.numpy(), 1e-11)
     _close(Jj.N, Jt.N.numpy(), 1e-11)
     rj, dj = res(jm, jnp.asarray(u))
@@ -155,9 +162,9 @@ def test_jacobian_stays_f32_in_mixed_precision():
     promote 0-dim f32 intermediates to f64)."""
     jm, tm, js, ts, u = _case()
     m32 = tm.to(torch.float32)
-    J = ts.assemble_jacobian(m32, interop.state_from_numpy(u, torch.float32))
+    J = ts.assemble_jacobian(m32, _state(u, torch.float32))
     assert J.D.dtype == torch.float32 and J.N.dtype == torch.float32
-    J64 = ts.assemble_jacobian(tm, interop.state_from_numpy(u))
+    J64 = ts.assemble_jacobian(tm, _state(u))
     _close(J64.N.numpy(), J.N.double().numpy(), 1e-4)
 
 
@@ -274,11 +281,11 @@ def test_hllc_residual_and_jacobian_match_jax():
     u = np.tile(np.asarray(js.uinf), (jm.NC, 1))
     u = u * (1.0 + 0.01 * rng.standard_normal(u.shape))
     rj, dj = res(jm, jnp.asarray(u))
-    rt, dt = ts.compute_residual(tm, interop.state_from_numpy(u), True)
+    rt, dt = ts.compute_residual(tm, _state(u), True)
     _close(rj, rt.numpy(), 1e-12)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-12)
     Jj = jac(jm, jnp.asarray(u))
-    Jt = ts.assemble_jacobian(tm, interop.state_from_numpy(u))
+    Jt = ts.assemble_jacobian(tm, _state(u))
     _close(Jj.D, Jt.D.numpy(), 1e-11)
     _close(Jj.N, Jt.N.numpy(), 1e-11)
 

@@ -229,8 +229,8 @@ def test_profile_step_runs_on_the_host(capsys):
     dict(pt=dict(pipeline=True)), dict(pt=dict(device_steps=4)),
     dict(pt=dict(bake_mesh=True)), dict(lin=dict(warm_start=True)),
     dict(lin=dict(deflation_k=8)), dict(lin=dict(matrix_free=True)),
-    dict(lin=dict(banded=False)), dict(lin=dict(pc="bcsgs")),
-    dict(lin=dict(pc="bjacobi")),
+    dict(lin=dict(pc="ilu0")), dict(lin=dict(pc="bline")),
+    dict(lin=dict(pc="amg")),
     dict(solver=dict(checkpoint_path="ck.npz")),
 ])
 def test_unported_solver_options_refused(change):
