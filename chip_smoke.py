@@ -21,7 +21,11 @@ wrappers with the launch counts zeroed just before it and read just after:
     iteration; and under the JAX package's default preconditioner
     (GATHER_BCSGS, bcsgs x3), timed over GATHER_STEPS main steps;
   - the bench path of the first slice: the banded laminar NACA0012 solve on
-    naca0012_omesh(160, 80) (cases/bench_case.run_solve, 600 steps).
+    naca0012_omesh(160, 80) (cases/bench_case.run_solve, 600 steps);
+  - the control-file entry point, `python -m fvens_tpu_torch.cases.cli` on
+    the committed cylinder ctrl and solverc at 640x320 in f64 (gather
+    bsgs x6, row_set once per Krylov iteration), with every output and a
+    resume from its checkpoint.
 
 In order:
 
@@ -95,14 +99,33 @@ In order:
  11. holds small solves on the card, through the kernels, to the JAX
      package's histories of the same inputs (SMALL_CASES, and on the
      gather path and with the banded bjacobi preconditioner
-     GATHER_SMALL_CASES).
+     GATHER_SMALL_CASES);
+ 12. drives the control-file entry point (fvens_tpu_torch.cases.cli.main,
+     in this process) on the committed cylinder ctrl and solverc (CLI_CTRL,
+     CLI_SOLVERC: the same inviscid cylinder, f64 throughout, FGMRES(90) at
+     a fixed rtol of 1e-2, bjacobi + ILU mapped to bsgs x6 on slot
+     gathers) at CLI_MESH, 640x320, generated into a temporary directory,
+     with a VTU, the surface table, the JSONL history, a checkpoint and
+     functionals every CLI_FUNCTIONALS_EVERY steps: it must exit 0 and
+     converge to the ctrl's tolerance, launch row_set once per Krylov
+     iteration of the whole run (starter included) and no banded kernel,
+     and write a VTU that parses as XML with the mesh's cells, a surface
+     table of CLI_WALL_FACES faces, one history line per main step with
+     finite functionals every CLI_FUNCTIONALS_EVERY steps; the same command
+     again must resume from the checkpoint and end in the same
+     functionals (within 1e-8);
+ 13. runs the CLI at CHECK_MESH and holds it to the JAX package's CLI on
+     the same files (JAX_CLI_RECORD): the starter's steps exactly, the first
+     AGREE_STEPS main steps step for step (Krylov iterations within 1,
+     residuals within 1%), main steps and Krylov iterations within 10%,
+     and the functionals within 1e-6.
 
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
 kernel record (launches of banded_apply and banded_bsgs from the banded
 640x320 solve of step 4, of row_set from the gather 640x320 solve of step
-5, and each path's counts under launches_by_path), and the one before
-that the seconds each phase took.
+5, and each path's counts under launches_by_path, the CLI of step 12
+among them), and the one before that the seconds each phase took.
 """
 
 import contextlib
@@ -152,6 +175,19 @@ GATHER_STEPS = 30                # bcsgs x3 main steps timed at 640x320
 # The JAX package's 600-step runs of the bench solve and its first-order
 # form on the CPU with x64 (records/jax_bench_history.py).
 JAX_RECORD = "records/jax_bench_history.json"
+# The control-file entry point (python -m fvens_tpu_torch.cases.cli) on the
+# committed cylinder case, run in this process: at CLI_MESH in full, and at
+# CHECK_MESH against the JAX package's CLI on the same files on the CPU with
+# x64 (records/jax_cli_history.py). Meshes are generated into a temporary
+# directory; the captured output of each run goes to CLI_LOG_DIR.
+CLI_CTRL = "fvens_tpu_torch/cases/ctrl/cylinder.ctrl"
+CLI_SOLVERC = "fvens_tpu_torch/cases/ctrl/cylinder.solverc"
+CLI_MESH = (640, 320)
+CLI_FUNCTIONALS_EVERY = 10
+CLI_WALL_FACES = 640             # the cylinder wall of CLI_MESH
+JAX_CLI_RECORD = "records/jax_cli_history.json"
+CLI_LOG_DIR = "chiprun_out"
+FUNCTIONALS = ("entropy", "CL", "CDp", "CDsf")
 
 # The small solves of step 9: the bench physics and solver on
 # naca0012_omesh(64, 16) from free stream. `ref` is the JAX package's
@@ -918,6 +954,210 @@ def small_solves(dev):
                   f"step {k + 1}")
 
 
+def write_cylinder_msh(path: str, ni: int, nj: int):
+    """cylinder_omesh(ni, nj, stretch=1.15**(20/nj)) as a Gmsh 2 file."""
+    from fvens_tpu_torch.cases.convertformat import write_gmsh2
+    from fvens_tpu_torch.mesh.meshgen import cylinder_omesh
+    write_gmsh2(path, cylinder_omesh(ni, nj, stretch=1.15 ** (20.0 / nj)))
+
+
+def parse_cli_output(text: str) -> dict:
+    """What the CLI (either package's) printed: whether it resumed, the
+    starter's Krylov iterations per step (its monitor lines, labelled BE;
+    all of them with --log_every 1), the main solve's steps and Krylov
+    iterations, and the functionals."""
+    import re
+    out = dict(resumed="resumed from" in text,
+               starter_iters=[int(m.group(1)) for m in re.finditer(
+                   r"^\s*BE \|\s+\d+ \|[^|]+\|[^|]+\|\s+(\d+) \|", text,
+                   re.M)])
+    m = re.search(r"solved in (\d+) steps, (\d+) linear iterations", text)
+    if m:
+        out.update(main_steps=int(m.group(1)), main_iters=int(m.group(2)))
+    for k, pat in zip(FUNCTIONALS, ("entropy error", "CL", "CDp", "CDsf")):
+        m = re.search(rf"^\s*{pat}\s*[:=]\s*(\S+)", text, re.M)
+        if m:
+            out[k] = float(m.group(1))
+    return out
+
+
+def run_cli(argv: list, log: str) -> dict:
+    """fvens_tpu_torch.cases.cli.main(argv) in this process, its standard
+    output captured into CLI_LOG_DIR/`log`. Returns the exit code, the
+    wall time and parse_cli_output of what it printed."""
+    import io
+    from fvens_tpu_torch.cases import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        text = buf.getvalue()
+        os.makedirs(CLI_LOG_DIR, exist_ok=True)
+        with open(os.path.join(CLI_LOG_DIR, log), "w") as f:
+            f.write(text)
+    return dict(rc=rc, wall_s=time.perf_counter() - t0,
+                **parse_cli_output(text))
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def same_functionals(a: dict, b: dict, rtol: float) -> bool:
+    """entropy, CL, CDp and CDsf of a within rtol of b's; CL is zero by
+    the case's symmetry (its value is rounding), so it is held to an
+    absolute 1e-12 where that is larger."""
+    return all(abs(a[k] - b[k]) <= max(rtol * abs(b[k]), 1e-12)
+               for k in FUNCTIONALS)
+
+
+def cli_path(dev):
+    """The control-file entry point at CLI_MESH on the card, counted: the
+    committed ctrl and solverc with every output, then the same command
+    again, which must resume from the checkpoint. Returns (report,
+    launches of the first run)."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+    import torch
+    from fvens_tpu_torch.io_config import parse_control_file
+
+    tol = parse_control_file(CLI_CTRL).main.tol
+    ni, nj = CLI_MESH
+    with tempfile.TemporaryDirectory() as tmp:
+        p = {k: os.path.join(tmp, f) for k, f in (
+            ("msh", "cylinder.msh"), ("vtu", "cylinder.vtu"),
+            ("surface", "surface.dat"), ("history", "history.jsonl"),
+            ("history2", "history2.jsonl"), ("checkpoint", "ck.npz"))}
+        t0 = time.perf_counter()
+        write_cylinder_msh(p["msh"], ni, nj)
+        mesh_s = time.perf_counter() - t0
+        base = [CLI_CTRL, "--mesh_file", p["msh"], "-options_file",
+                CLI_SOLVERC, "--device", dev.type, "--checkpoint",
+                p["checkpoint"], "--functionals_every",
+                str(CLI_FUNCTIONALS_EVERY), "--log_every", "1"]
+        torch.cuda.synchronize()
+        zero_counts()
+        run = run_cli(base + ["--vtu", p["vtu"], "--surface", p["surface"],
+                              "--history", p["history"]],
+                      f"cli_{ni}x{nj}.log")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(run["rc"] == 0, f"the CLI exited {run['rc']}")
+        rows = read_jsonl(p["history"])
+        its = sum(run["starter_iters"]) + sum(r["lin_iters"] for r in rows)
+        check(not run["resumed"], "the first CLI run resumed")
+        check([r["step"] for r in rows] == list(range(1, len(rows) + 1))
+              and len(rows) == run["main_steps"]
+              and sum(r["lin_iters"] for r in rows) == run["main_iters"],
+              "the history does not hold one line per main step")
+        check(rows[-1]["relres"] <= tol,
+              f"the CLI solve stopped at {rows[-1]['relres']!r}, not {tol}")
+        check(its > 0 and launches["row_set"] == its,
+              f"{launches['row_set']} row_set launches for {its} Krylov "
+              "iterations (starter and main)")
+        check(launches["banded_apply"] == launches["banded_bsgs"] == 0,
+              f"the CLI launched a banded kernel: {launches}")
+        logged = [r for r in rows if "CL" in r]
+        check([r["step"] for r in logged]
+              == [r["step"] for r in rows
+                  if r["step"] % CLI_FUNCTIONALS_EVERY == 0] and logged
+              and all(np.isfinite(r[k]) for r in logged
+                      for k in FUNCTIONALS),
+              "functionals not logged every "
+              f"{CLI_FUNCTIONALS_EVERY} steps, or not finite")
+        check(all(np.isfinite(run[k]) for k in FUNCTIONALS),
+              f"non-finite functionals {run}")
+        piece = ET.parse(p["vtu"]).getroot().find("UnstructuredGrid/Piece")
+        dens = next(a for a in piece.iter("DataArray")
+                    if a.get("Name") == "density").text.split()
+        check(int(piece.get("NumberOfCells")) == ni * nj
+              and len(dens) == ni * nj
+              and bool(np.isfinite(np.asarray(dens, float)).all()),
+              "the VTU does not hold the mesh's cells")
+        surf = np.loadtxt(p["surface"])
+        check(surf.shape == (CLI_WALL_FACES, 4)
+              and bool(np.isfinite(surf).all()),
+              f"surface table of shape {surf.shape}")
+        vtu_mb = os.path.getsize(p["vtu"]) / 1e6
+
+        run2 = run_cli(base + ["--history", p["history2"]],
+                       f"cli_{ni}x{nj}_resume.log")
+        rows2 = read_jsonl(p["history2"])
+    check(run2["rc"] == 0 and run2["resumed"],
+          "the second CLI run did not resume from the checkpoint")
+    check(same_functionals(run2, run, 1e-8),
+          f"the resumed run's functionals {run2} differ from {run}")
+    main_s = rows[-1]["wall_s"] - rows[0]["wall_s"]
+    rep = dict(
+        mesh=f"cylinder_omesh{CLI_MESH}", cells=ni * nj, dtype="float64",
+        mesh_write_s=mesh_s, wall_s=run["wall_s"],
+        starter_steps=len(run["starter_iters"]),
+        starter_krylov_iters=sum(run["starter_iters"]),
+        main_steps=run["main_steps"], main_krylov_iters=run["main_iters"],
+        main_s_per_step=main_s / max(len(rows) - 1, 1),
+        final_relres=rows[-1]["relres"], vtu_mb=vtu_mb,
+        functionals={k: run[k] for k in FUNCTIONALS},
+        resumed_at=min(r["step"] for r in rows2) - 1 if rows2 else None,
+        resumed_steps=len(rows2), resumed_wall_s=run2["wall_s"],
+        resumed_functionals_bitwise=all(run2[k] == run[k]
+                                        for k in FUNCTIONALS),
+        launches=launches)
+    print("cli", json.dumps(rep), flush=True)
+    return rep, launches
+
+
+def cli_vs_record(dev):
+    """The CLI at CHECK_MESH on the card against the JAX package's CLI on
+    the same files (JAX_CLI_RECORD): the starter's steps exactly, the first
+    AGREE_STEPS main steps step for step (Krylov iterations within 1,
+    residuals within 1%), the main steps and Krylov iterations within 10%,
+    and the converged functionals within 1e-6."""
+    import tempfile
+
+    rec = _load(JAX_CLI_RECORD)
+    ni, nj = CHECK_MESH
+    with tempfile.TemporaryDirectory() as tmp:
+        msh = os.path.join(tmp, "cylinder.msh")
+        hist = os.path.join(tmp, "history.jsonl")
+        write_cylinder_msh(msh, ni, nj)
+        run = run_cli([CLI_CTRL, "--mesh_file", msh, "-options_file",
+                       CLI_SOLVERC, "--device", dev.type, "--log_every", "1",
+                       "--functionals_every", str(CLI_FUNCTIONALS_EVERY),
+                       "--history", hist], f"cli_{ni}x{nj}.log")
+        rows = read_jsonl(hist) if run["rc"] == 0 else []
+    check(run["rc"] == 0, f"the {ni}x{nj} CLI run exited {run['rc']}")
+    ref = rec["main"]
+    print(f"cli {ni}x{nj}: starter {len(run['starter_iters'])} steps / "
+          f"{sum(run['starter_iters'])} iterations, main {run['main_steps']}"
+          f" / {run['main_iters']}, functionals "
+          f"{json.dumps({k: run[k] for k in FUNCTIONALS})}; the JAX "
+          f"package's: starter {rec['starter']['steps']} / "
+          f"{rec['starter']['krylov_iters']}, main {ref['steps']} / "
+          f"{ref['krylov_iters']}, {json.dumps(rec['functionals'])}",
+          flush=True)
+    check(len(run["starter_iters"]) == rec["starter"]["steps"],
+          "the starter departs from the JAX package's")
+    check(len(rows) >= AGREE_STEPS,
+          f"the main solve took only {len(rows)} steps")
+    for r, q in zip(rows[:AGREE_STEPS], ref["history"]):
+        check(abs(r["lin_iters"] - q["lin_iters"]) <= 1
+              and abs(r["absres"] - q["absres"]) <= 0.01 * q["absres"],
+              f"main step {r['step']}: iterations {r['lin_iters']} vs "
+              f"{q['lin_iters']}, residual {r['absres']!r} vs "
+              f"{q['absres']!r}")
+    for got, key in ((run["main_steps"], "steps"),
+                     (run["main_iters"], "krylov_iters")):
+        check(abs(got - ref[key]) <= 0.1 * ref[key],
+              f"main {key} {got} not within 10% of the JAX package's "
+              f"{ref[key]}")
+    check(same_functionals(run, rec["functionals"], 1e-6),
+          "the functionals differ from the JAX package's by more than 1e-6")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -972,6 +1212,10 @@ def main() -> int:
         bench_twins(dev, cm)
     with phase("small solves vs the JAX package"):
         small_solves(dev)
+    with phase(f"cli {CLI_MESH[0]}x{CLI_MESH[1]}"):
+        _, paths[f"cli {CLI_MESH[0]}x{CLI_MESH[1]}"] = cli_path(dev)
+    with phase(f"cli {check_mesh[9:]} vs the JAX record"):
+        cli_vs_record(dev)
 
     def main_row(rows, **want):
         return next(r for r in rows if r["dtype"] == "float32"

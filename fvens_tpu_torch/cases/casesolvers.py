@@ -1,13 +1,13 @@
 """Steady flow cases (the reference's case API,
 FVENS src/utilities/casesolvers.cpp): the spatial discretization from a case
-config, the free-stream initial state, and SteadyFlowCase: the first-order
-low-tolerance STARTER solve (:225-314, tolerance failures swallowed)
-followed by the second-order MAIN solve (:316-386), and the entropy error of
-the result.
+config, the free-stream initial state, the case mesh from its file, and
+SteadyFlowCase: the first-order low-tolerance STARTER solve (:225-314,
+tolerance failures swallowed) followed by the second-order MAIN solve
+(:316-386), with checkpoints and functionals logged during the main solve,
+and the output functionals (entropy error, CL, CDp, CDsf) of the result.
 
-Explicit pseudo-time stepping, checkpointing, device-evaluated functionals
-and the surface output (CL, CDp, CDsf) are still to be ported and raise
-NotImplementedError.
+Explicit pseudo-time stepping is still to be ported (ROADMAP queue 1 item
+7) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ import torch
 
 from ..config import FlowCaseConfig
 from ..fv.residual import FlowFV
-from ..mesh.device_mesh import CompiledMesh
-from ..output import FlowSolutionFunctionals, entropy_error
+from ..mesh.device_mesh import CompiledMesh, compile_mesh
+from ..mesh.reader import read_mesh
+from ..output import (FlowSolutionFunctionals, entropy_error,
+                      make_functionals, surface_data)
 from ..physics.gas import GasPhysics
 from ..solver.steady import SolveInfo, SteadyBackwardEuler, ToleranceError
 
@@ -45,6 +47,14 @@ def initial_state(space: FlowFV, mesh: CompiledMesh) -> torch.Tensor:
     return space.uinf(mesh.dtype, mesh.device).repeat(mesh.NC, 1)
 
 
+def load_case_mesh(cfg: FlowCaseConfig, mesh_file: str | None = None,
+                   dtype: torch.dtype = torch.float64,
+                   device: torch.device | str = "cuda") -> CompiledMesh:
+    """The case's mesh file (or `mesh_file`) compiled with its BCs."""
+    md = read_mesh(mesh_file or cfg.mesh_file)
+    return compile_mesh(md, cfg.bcs, dtype=dtype, device=device)
+
+
 @dataclasses.dataclass
 class SteadyFlowCase:
     """Starter (first-order, loose tol) -> main (second-order) solve."""
@@ -54,19 +64,25 @@ class SteadyFlowCase:
                                                        init=False)
 
     def _make_solver(self, space, pt, checkpoint: bool = False):
+        """The implicit solver of one phase; the main phase (`checkpoint`)
+        takes the case's checkpoint file and, with functionals_every and
+        wall markers, the functional evaluator."""
         if pt.stepping == "explicit":
             raise NotImplementedError(
                 "not ported yet: explicit pseudo-time stepping "
-                "(SteadyForwardEuler)")
+                "(SteadyForwardEuler, ROADMAP queue 1 item 7)")
+        fn = None
         if checkpoint and self.cfg.functionals_every and self.cfg.wall_markers:
-            raise NotImplementedError(
-                "not ported yet: functionals logged during the solve")
+            fn = make_functionals(space, self.cfg.wall_markers)
         return SteadyBackwardEuler(
             space, pt, self.cfg.linear, self.cfg.nl_update,
             checkpoint_path=(self.cfg.checkpoint_path or None) if checkpoint
-            else None)
+            else None,
+            checkpoint_every=self.cfg.checkpoint_every,
+            functional_fn=fn,
+            functional_every=self.cfg.functionals_every)
 
-    def execute_starter(self, mesh, u):
+    def execute_starter(self, mesh, u, log_every: int = 0):
         """First-order startup; tolerance failures are swallowed
         (casesolvers.cpp:294-299), and the state is then the one the
         starter began from, as in the JAX package. The starter's SolveInfo
@@ -76,36 +92,38 @@ class SteadyFlowCase:
             solver = self._starter_solver = self._make_solver(
                 build_space(self.cfg, order2=False), self.cfg.init)
         try:
-            u, self.starter_info = solver.solve(mesh, u)
+            u, self.starter_info = solver.solve(mesh, u, log_every=log_every)
         except ToleranceError as e:
             self.starter_info = e.info
         return u
 
-    def execute_main(self, mesh, u) -> tuple:
+    def execute_main(self, mesh, u, log_every: int = 0, logger=None) -> tuple:
         solver = getattr(self, "_main_solver", None)
         if solver is None:
             solver = self._main_solver = self._make_solver(
                 build_space(self.cfg), self.cfg.main, checkpoint=True)
-        return solver.solve(mesh, u)
+        return solver.solve(mesh, u, log_every=log_every, logger=logger)
 
-    def solve(self, mesh, u=None) -> tuple:
+    def solve(self, mesh, u=None, log_every: int = 0, logger=None) -> tuple:
         """(u, SolveInfo of the main solve) from `u` (default: free
         stream)."""
         if u is None:
             u = initial_state(build_space(self.cfg), mesh)
         self.starter_info = None
         if self.cfg.use_starter and self.cfg.numerics.order2:
-            u = self.execute_starter(mesh, u)
-        return self.execute_main(mesh, u)
+            u = self.execute_starter(mesh, u, log_every=log_every)
+        return self.execute_main(mesh, u, log_every=log_every, logger=logger)
 
-    def run_output(self, mesh, u=None
+    def run_output(self, mesh, u=None, log_every: int = 0, logger=None
                    ) -> tuple[torch.Tensor, SolveInfo, FlowSolutionFunctionals]:
-        """Solve and compute the entropy error (casesolvers.cpp:75-164)."""
+        """Solve and compute output functionals (casesolvers.cpp:75-164)."""
+        u, info = self.solve(mesh, u, log_every=log_every, logger=logger)
+        space = build_space(self.cfg)
+        ent = entropy_error(space, mesh, u)
+        CL = CDp = CDsf = 0.0
         if self.cfg.wall_markers:
-            raise NotImplementedError(
-                "not ported yet: surface data and force coefficients "
-                "(wall_markers)")
-        u, info = self.solve(mesh, u)
-        ent = entropy_error(build_space(self.cfg), mesh, u)
+            _, (CL, CDp, CDsf) = surface_data(space, mesh, u,
+                                              self.cfg.wall_markers)
         return u, info, FlowSolutionFunctionals(mesh_size=mesh.h_param,
-                                                entropy=ent)
+                                                entropy=ent, CL=CL, CDp=CDp,
+                                                CDsf=CDsf)

@@ -1,0 +1,185 @@
+"""fvens_steady-equivalent CLI of the PyTorch port.
+
+Usage:  python -m fvens_tpu_torch.cases.cli case.ctrl [--mesh_file m.msh]
+            [-options_file opts.solverc] [--device cuda|cpu] [--f32]
+            [--vtu out.vtu] [--surface s.dat] [--volume v.dat]
+            [--history h.jsonl] [--checkpoint ck.npz]
+
+The twin of the JAX package's cases/cli.py, mirroring the reference's
+fvens_steady program (FVENS src/fvens_steady.cpp:15-57): parse the control
+file (and the PETSc options file), read the mesh, free-stream init,
+starter + main solve, then write functionals, surface data, the volume
+table and VTU output. It runs
+on the CUDA card unless `--device cpu` is given; there is no fallback from
+one to the other.
+
+Not ported yet, and refused with NotImplementedError: unsteady control
+files and explicit pseudo-time stepping (ROADMAP queue 1 item 7), the
+domain-decomposed run `--devices` (item 9) and `--pipeline` (pipelined
+stepping is ported only once an H100 measurement shows the per-step host
+sync costs time).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="fvens_tpu_torch steady flow "
+                                             "solver")
+    ap.add_argument("control_file")
+    ap.add_argument("--mesh_file", default=None,
+                    help="override the control file's mesh")
+    ap.add_argument("-options_file", "--options_file", default=None,
+                    help="PETSc-style .solverc options file (the reference's "
+                         "-options_file flag): ksp/pc settings are mapped "
+                         "onto the port's linear solver as in the JAX "
+                         "package")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="run on the CUDA card (default) or the CPU")
+    ap.add_argument("--f32", action="store_true",
+                    help="solve in float32")
+    ap.add_argument("--vtu", default=None, help="write VTU solution here")
+    ap.add_argument("--surface", default=None,
+                    help="write wall surface data (x y Cp Cf) here")
+    ap.add_argument("--volume", default=None,
+                    help="write volume data (x y rho vx vy p T Mach) here")
+    ap.add_argument("--history", default=None,
+                    help="write convergence history (JSONL) here")
+    ap.add_argument("--functionals_every", type=int, default=0,
+                    help="log the functionals (entropy/CL/CDp/CDsf), "
+                         "evaluated on the device, to the history every N "
+                         "steps (0 = off)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="checkpoint/resume the main solve at this path")
+    ap.add_argument("--mesh_reorder", default="none",
+                    choices=["none", "rcm", "line", "line_rcm"],
+                    help="cell reordering (reference -mesh_reorder)")
+    ap.add_argument("--mesh_anisotropy_threshold", type=float, default=None,
+                    help="minimum local grid anisotropy for a cell to join "
+                         "a line under line orderings (reference "
+                         "-mesh_anisotropy_threshold, doc/user-doc.md:22; "
+                         "default 10.0)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="domain-decomposed run over N devices (not ported "
+                         "yet)")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="software-pipelined host stepping (not ported)")
+    ap.add_argument("--log_every", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    if args.devices:
+        raise NotImplementedError(
+            "not ported yet: the domain-decomposed run (--devices, ROADMAP "
+            "queue 1 item 9)")
+    if args.pipeline:
+        raise NotImplementedError(
+            "not ported: pipelined host stepping (--pipeline); it is ported "
+            "only once an H100 measurement shows the per-step host sync "
+            "costs time (ROADMAP)")
+
+    import numpy as np
+    import torch
+
+    from ..io_config import parse_control_file, write_vtu
+    from ..io_config.logs import ConvergenceLogger
+    from ..mesh.device_mesh import compile_mesh
+    from ..mesh.reader import read_mesh
+    from ..output import cell_fields, surface_data, volume_data
+    from .casesolvers import SteadyFlowCase, build_space
+
+    cfg = parse_control_file(args.control_file, mesh_file=args.mesh_file)
+    if cfg.sim_type == "unsteady":
+        raise NotImplementedError(
+            "not ported yet: unsteady control files (TVD-RK physical-time "
+            "stepping, ROADMAP queue 1 item 7)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("fvens_tpu_torch: no CUDA device (torch.cuda.is_available() "
+              "is false); pass --device cpu to run on the CPU",
+              file=sys.stderr)
+        return 1
+    if args.options_file:
+        from ..io_config.solverc import load_solver_options
+        lin, reorder, aniso = load_solver_options(
+            args.options_file, base=cfg.linear,
+            warn=lambda m: print(f"fvens_tpu_torch: {m}"))
+        cfg = dataclasses.replace(cfg, linear=lin)
+        if args.mesh_reorder == "none" and reorder:
+            args.mesh_reorder = reorder
+        if args.mesh_anisotropy_threshold is None and aniso is not None:
+            args.mesh_anisotropy_threshold = aniso
+        print(f"fvens_tpu_torch: solver options from {args.options_file}: "
+              f"pc={lin.pc}, restart={lin.restart}, maxiter={lin.maxiter}, "
+              f"rtol={lin.rtol}"
+              + (f", reorder={reorder}" if reorder else ""))
+    if args.checkpoint:
+        cfg = dataclasses.replace(cfg, checkpoint_path=args.checkpoint)
+    if args.functionals_every:
+        cfg = dataclasses.replace(cfg,
+                                  functionals_every=args.functionals_every)
+    dtype = torch.float32 if args.f32 else torch.float64
+
+    if not os.path.exists(cfg.mesh_file):
+        print(f"fvens_tpu_torch: mesh file not found: {cfg.mesh_file}",
+              file=sys.stderr)
+        return 1
+    md = read_mesh(cfg.mesh_file)
+    if args.mesh_reorder != "none":
+        from ..mesh.ordering import apply_ordering
+        md = apply_ordering(md, args.mesh_reorder,
+                            anisotropy_threshold=(
+                                args.mesh_anisotropy_threshold
+                                if args.mesh_anisotropy_threshold is not None
+                                else 10.0))
+    mesh = compile_mesh(md, cfg.bcs, dtype=dtype, device=args.device)
+    print(f"fvens_tpu_torch: mesh {cfg.mesh_file}: {mesh.n_cells} cells, "
+          f"{mesh.n_bfaces} boundary faces, {mesh.n_faces} faces")
+
+    # live step monitor (+ streamed JSONL history if --history given):
+    # SteadyStepMonitor / log_file_prefix parity (aodesolver.cpp:541-558)
+    logger = ConvergenceLogger(path=args.history,
+                               print_every=args.log_every, label="main")
+    t0 = time.perf_counter()
+    try:
+        case = SteadyFlowCase(cfg)
+        u, info, fnls = case.run_output(mesh, log_every=args.log_every,
+                                        logger=logger)
+    finally:
+        logger.close()
+    wall = time.perf_counter() - t0
+
+    print(f"fvens_tpu_torch: solved in {info.steps} steps, "
+          f"{info.total_lin_iters} linear iterations, {wall:.3f} s")
+    print(f"  entropy error: {fnls.entropy:.10e}")
+    print(f"  CL   = {fnls.CL:.15e}")
+    print(f"  CDp  = {fnls.CDp:.15e}")
+    print(f"  CDsf = {fnls.CDsf:.15e}")
+
+    space = build_space(cfg)
+    if args.surface and cfg.wall_markers:
+        table, _ = surface_data(space, mesh, u, cfg.wall_markers)
+        np.savetxt(args.surface, table, header="x y Cp Cf")
+        print(f"  wrote surface data to {args.surface}")
+
+    if args.volume:
+        np.savetxt(args.volume, volume_data(space, mesh, u),
+                   header="x y rho vx vy p T mach")
+        print(f"  wrote volume data to {args.volume}")
+
+    if args.vtu:
+        f = cell_fields(space, mesh, u)
+        write_vtu(args.vtu, md,
+                  cell_scalars={"density": f["u"][:, 0], "pressure": f["p"],
+                                "mach": f["mach"]},
+                  cell_vectors={"velocity": f["v"]})
+        print(f"  wrote VTU solution to {args.vtu}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

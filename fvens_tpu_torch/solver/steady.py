@@ -29,15 +29,21 @@ fetch per step. The linear solve takes one of the JAX package's two paths
     matvec and make_preconditioner (none, bjacobi, bsgs, bcsgs) of
     solver/linear.py, plain PyTorch.
 
+The solve resumes from `checkpoint_path` where that file exists and saves
+the state and the controller every `checkpoint_every` accepted steps;
+`functional_fn` is evaluated on the new state every `functional_every`
+steps and its values join the logger's record, as in the JAX package.
+
 Not ported yet, and refused with NotImplementedError: the ilu0, bline and
 amg preconditioners, matrix-free operators, warm start, GCRO-DR recycling,
-on-device chunked stepping (device_steps), pipelined stepping, baked-mesh
-programs and checkpoint/resume.
+on-device chunked stepping (device_steps), pipelined stepping and
+baked-mesh programs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -46,6 +52,8 @@ import torch
 
 from ..config import (LinearSolverConfig, NonlinearUpdateConfig,
                       PseudoTimeConfig)
+from ..io_config.checkpoint import load_checkpoint, save_checkpoint
+from ..io_config.logs import ConvergenceLogger
 from . import jacobian as jacmod
 from .banded import (BandedStructure, banded_blocks, banded_dn_blocks,
                      banded_structure, make_banded_bsgs, make_banded_matvec)
@@ -181,7 +189,14 @@ class SteadyBackwardEuler:
     cfg: PseudoTimeConfig
     lin: LinearSolverConfig = LinearSolverConfig()
     nl: NonlinearUpdateConfig = NonlinearUpdateConfig()
-    checkpoint_path: Optional[str] = None     # not ported: must stay None
+    checkpoint_path: Optional[str] = None     # save/resume state here
+    checkpoint_every: int = 50
+    # (mesh, u) -> (entropy, CL, CDp, CDsf) tensors, e.g. output.
+    # make_functionals; every `functional_every` steps its values join the
+    # logger's record
+    functional_fn: Optional[object] = None
+    functional_every: int = 0
+    log_label = "BE"      # class attr (not a field): logger prefix
 
     def _check_supported(self):
         cfg, lin = self.cfg, self.lin
@@ -192,7 +207,6 @@ class SteadyBackwardEuler:
             ("LinearSolverConfig.warm_start", lin.warm_start),
             ("LinearSolverConfig.deflation_k > 0", lin.deflation_k > 0),
             ("LinearSolverConfig.matrix_free", lin.matrix_free),
-            ("checkpoint_path", bool(self.checkpoint_path)),
             (f"pc='{lin.pc}' (ROADMAP queue 1 item 8)",
              lin.pc in UNPORTED_PRECONDITIONERS),
         ) if on]
@@ -318,18 +332,21 @@ class SteadyBackwardEuler:
             res = float("nan")
         return unew, res, iters
 
-    def solve(self, mesh, u0, max_steps: Optional[int] = None) -> tuple:
-        """Run the continuation from u0 to the configured tolerance.
+    def solve(self, mesh, u0, log_every: int = 0, logger=None,
+              max_steps: Optional[int] = None) -> tuple:
+        """Run the continuation from u0 (or from the checkpoint) to the
+        configured tolerance. `logger` (io_config.logs.ConvergenceLogger or
+        any object with its `log`) receives every accepted step; with
+        `log_every` and no logger, one that prints every `log_every` steps.
 
-        `max_steps` stops after that many accepted steps and returns without
-        the convergence verdict (for step-by-step comparisons); otherwise a
-        solve that does not converge raises ToleranceError."""
+        `max_steps` stops after that many accepted steps of this call and
+        returns without the convergence verdict (for step-by-step
+        comparisons); otherwise a solve that does not converge raises
+        ToleranceError."""
         self._check_supported()
         bl = self._banded(mesh)
         mixed = self.lin.mixed_precision and u0.dtype == torch.float64
         lmesh = mesh.to(torch.float32) if mixed else mesh
-        nsteps = (self.cfg.maxiter if max_steps is None
-                  else min(max_steps, self.cfg.maxiter))
 
         u = u0
         info = SolveInfo()
@@ -337,17 +354,44 @@ class SteadyBackwardEuler:
         res = resold = initres = 1.0
         cfl = self.cfg.cfl_init
         step = 0
+        if logger is None and log_every:
+            logger = ConvergenceLogger(print_every=log_every,
+                                       label=self.log_label)
 
         rtol = 0.1 if self.lin.rtol_adapt else self.lin.rtol
         rtol_floor = self.lin.rtol
         raise_relres = 0.0    # relres level of the last floor raise
+        resumed_cap = 0.0
+
+        # resume from a checkpoint if one exists (absent in the reference:
+        # controlparser.hpp:24 parses init_soln_file but never implements it)
+        if self.checkpoint_path:
+            if os.path.exists(self.checkpoint_path):
+                ck = load_checkpoint(self.checkpoint_path)
+                u = torch.as_tensor(ck["u"], dtype=u0.dtype,
+                                    device=u0.device)
+                step = ck["step"]
+                cfl = ck["cfl"] or cfl
+                res = resold = ck["res"] or 1.0
+                initres = ck["initres"] or 1.0
+                # restore the full controller state so the resumed solve
+                # CONTINUES the interrupted trajectory
+                rtol = float(ck.get("x_rtol", rtol))
+                rtol_floor = float(ck.get("x_rtol_floor", rtol_floor))
+                raise_relres = float(ck.get("x_raise_relres", 0.0))
+                resold = float(ck.get("x_resold", resold))
+                resumed_cap = float(ck.get("x_cfl_cap", 0.0))
+                print(f"  resumed from {self.checkpoint_path} at step {step}")
+        nsteps = (self.cfg.maxiter if max_steps is None
+                  else min(step + max_steps, self.cfg.maxiter))
 
         nan_retries = 0
         omega_cap = 1.0
         u_good = u            # last state whose residual evaluated healthy
         u_best, res_best = u, float("inf")   # lowest-residual state seen
         stall_count = 0
-        cfl_cap = float("inf")    # trust-region cap, shrinks on failures
+        # trust-region cap, shrinks on failures (restored across resume)
+        cfl_cap = resumed_cap if resumed_cap > 0 else float("inf")
         while step < nsteps:
             if step > 0:
                 rc = (linear_ramp(self.cfg.cfl_init, self.cfg.cfl_fin,
@@ -364,6 +408,12 @@ class SteadyBackwardEuler:
             u, res_new, iters = self._step(mesh, u, cfl, rtol, omega_cap,
                                            lmesh=lmesh, bl=bl)
             info.step_times.append((time.perf_counter() - ts, iters))
+            fnl_log = {}
+            if (self.functional_fn is not None and self.functional_every
+                    and (step + 1) % self.functional_every == 0):
+                fnl_log = dict(zip(("entropy", "CL", "CDp", "CDsf"),
+                                   torch.stack(self.functional_fn(mesh, u))
+                                   .tolist()))
             resold = res
             res = res_new
             info.total_lin_iters += iters
@@ -434,6 +484,18 @@ class SteadyBackwardEuler:
                 resold = res
             step += 1
             info.history.append((step, res / initres, res, cfl, iters))
+            if logger:
+                logger.log(step, res / initres, res, lin_iters=int(iters),
+                           cfl=cfl, **fnl_log)
+            if (self.checkpoint_path and self.checkpoint_every
+                    and step % self.checkpoint_every == 0):
+                save_checkpoint(self.checkpoint_path, u, step=step, cfl=cfl,
+                                res=res, initres=initres,
+                                extra={"rtol": rtol,
+                                       "rtol_floor": rtol_floor,
+                                       "raise_relres": raise_relres,
+                                       "resold": resold,
+                                       "cfl_cap": min(cfl_cap, 1e300)})
             if (res / initres <= self.cfg.tol
                     or (self.cfg.tol_abs and res <= self.cfg.tol_abs)):
                 break

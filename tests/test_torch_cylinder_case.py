@@ -201,9 +201,10 @@ def test_run_output_reports_the_entropy_error(blocked_everywhere):
 
 
 @pytest.mark.parametrize("change", [
-    dict(wall_markers=(2,)),
+    dict(init=dict(stepping="explicit")),
     dict(main=dict(stepping="explicit")),
-    dict(checkpoint_path="ck.npz"),
+    # what a .solverc's -pc_type gamg maps to
+    dict(linear=dict(pc="amg")),
 ])
 def test_unported_case_options_refused(change):
     cfg = bigmesh_case.case_config()

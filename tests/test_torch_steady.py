@@ -231,7 +231,8 @@ def test_profile_step_runs_on_the_host(capsys):
     dict(lin=dict(deflation_k=8)), dict(lin=dict(matrix_free=True)),
     dict(lin=dict(pc="ilu0")), dict(lin=dict(pc="bline")),
     dict(lin=dict(pc="amg")),
-    dict(solver=dict(checkpoint_path="ck.npz")),
+    # what a .solverc's -matrix_free_jacobian maps to
+    dict(lin=dict(matrix_free=True, matrix_free_fd=True, fd_eps=1e-7)),
 ])
 def test_unported_solver_options_refused(change):
     _, tm, _, ts, _ = _case()
