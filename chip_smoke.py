@@ -25,7 +25,13 @@ wrappers with the launch counts zeroed just before it and read just after:
   - the control-file entry point, `python -m fvens_tpu_torch.cases.cli` on
     the committed cylinder ctrl and solverc at 640x320 in f64 (gather
     bsgs x6, row_set once per Krylov iteration), with every output and a
-    resume from its checkpoint.
+    resume from its checkpoint;
+  - the schemes and steppers: every flux, gradient scheme and
+    reconstruction at 640x320; the transonic NACA0012 (HLLC + WENO)
+    through the CLI at 640x320 (gather bsgs x6, row_set); the banded
+    cylinder with Venkatakrishnan (K1, K1b, K2); the explicit cylinder
+    through the CLI; TVD-RK3 on a 512x512 periodic vortex box; the heat
+    equation on a 512x512 square (V = 1 blocks, row_set).
 
 In order:
 
@@ -79,13 +85,14 @@ In order:
      to the record of its own GMRES path step for step and, in its totals,
      to the range of the JAX package's runs of its preconditioner (10%
      for bsgs, 35% for bcsgs, whose endgame is a long stall);
-  8. runs the bench solve (its full 600 steps), whose state must stay finite
-     with at least one banded_apply and one fused bsgs launch per Krylov
-     iteration. It must reach 1e-10 if the JAX package's own solve of the
-     same case did (JAX_RECORD, made by records/jax_bench_history.py); on
-     this generated mesh that solve does not converge, but cycles between
-     residuals near 1e-3 and blowups, and the port's lowest residual must
-     then be within 10x of the JAX package's;
+  8. runs the bench solve (its first BENCH_STEPS of 600 steps), whose state
+     must stay finite with at least one banded_apply and one fused bsgs
+     launch per Krylov iteration. It must reach 1e-10 if the JAX package's
+     own solve of the same case did (JAX_RECORD, made by
+     records/jax_bench_history.py); on this generated mesh that solve does
+     not converge, but cycles between residuals near 1e-3 and blowups, and
+     the port's lowest residual must then be within 10x of the lowest of
+     the JAX package's over the same steps;
   9. runs the first-order (starter) form of the bench solve, which must
      converge to 1e-10 through the kernels in the steps and Krylov
      iterations of the JAX package's run (JAX_RECORD);
@@ -118,14 +125,50 @@ In order:
      the same files (JAX_CLI_RECORD): the starter's steps exactly, the first
      AGREE_STEPS main steps step for step (Krylov iterations within 1,
      residuals within 1%), main steps and Krylov iterations within 10%,
-     and the functionals within 1e-6.
+     and the functionals within 1e-6;
+ 14. A: the scheme sweep on cylinder_omesh(640, 320) at a seeded state
+     (SWEEP_COMBOS: each flux with least squares + LINEAR, each
+     reconstruction with HLLC, Green-Gauss): each residual on the card
+     equal to the port's CPU residual of the same tensors to 1e-12 and
+     timed; each flux's slot Jacobian, CONSISTENT and FROZEN, equal to the
+     CPU's at 160x80 to 1e-11 and timed at 640x320; printed as a table;
+ 15. B1: the CLI on the committed transonic NACA0012 ctrl and solverc at
+     NACA_MESH (f64, gather bsgs x6, blocked GMRES), the main solve capped
+     at NACA_MAIN_STEPS: row_set once per Krylov iteration, no banded
+     kernel, no retried step, the relative residual within NACA_TRACK x of
+     the card's readings NACA_CARD_RELRES and at most NACA_LEVEL at the
+     cap. Then at 160x80 against the JAX package's CLI on the same files
+     (JAX_SCHEMES_RECORD): the starter step for step, the first
+     NACA_AGREE_STEPS main steps step for step (Krylov iterations equal,
+     residuals to 1e-9 relative with a floor of 1e-12 of the first), main
+     totals within 10%, functionals to 1e-8 where the record converged;
+ 16. B2: the banded 640x320 cylinder with Venkatakrishnan (K = 20), mixed
+     precision, the starter and LIMITED_MAIN_STEPS main steps through K1,
+     K1b and K2: finite, falling residuals;
+ 17. C: the CLI on the committed explicit cylinder ctrl at EXPLICIT_MESH to
+     its tolerance or EXPLICIT_MAX_STEPS steps (steps per second, cell
+     updates per second), then its first EXPLICIT_AGREE_STEPS steps at
+     160x80 against the record to 1e-10 relative; no kernel launches;
+ 18. D: TVD-RK3 at CFL 0.8 on the VORTEX_N periodic vortex box to VORTEX_T:
+     mass to 1e-10, L2 density error under half the vortex's deviation and
+     at least 4x below the VORTEX_COARSE run's; at 64x64 to t = 0.5 the
+     record's steps, t to 1e-12 and state to 1e-10;
+ 19. E: the heat equation (DiffusionFV, V = 1) on unit_square(n) quads at
+     HEAT_N, implicit on the gather path to 1e-9: converged, row_set once
+     per Krylov iteration at 512x512 (blocked GMRES at n = 262,144), L2
+     error order in [1.9, 2.1].
+
+Each path of steps 15-19 prints one line (naca cli, limited banded,
+explicit cli, vortex, heat) with its steps, Krylov iterations, launches,
+wall time and rates, and the card's name and power limit.
 
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
 kernel record (launches of banded_apply and banded_bsgs from the banded
 640x320 solve of step 4, of row_set from the gather 640x320 solve of step
-5, and each path's counts under launches_by_path, the CLI of step 12
-among them), and the one before that the seconds each phase took.
+5, and each path's counts under launches_by_path, the CLI of step 12 and
+the paths of steps 15-19 among them), and the one before that the seconds
+each phase took.
 """
 
 import contextlib
@@ -188,6 +231,50 @@ CLI_WALL_FACES = 640             # the cylinder wall of CLI_MESH
 JAX_CLI_RECORD = "records/jax_cli_history.json"
 CLI_LOG_DIR = "chiprun_out"
 FUNCTIONALS = ("entropy", "CL", "CDp", "CDsf")
+# The bench solve's steps here: the JAX record's lowest residual falls
+# within its first 200 of 600 steps, and so does the port's.
+BENCH_STEPS = 200
+# This slice's paths: the schemes and the steppers. The JAX package's CPU
+# runs they are held to: records/jax_schemes_history.py.
+JAX_SCHEMES_RECORD = "records/jax_schemes_history.json"
+SWEEP_MESH = (640, 320)          # phase A: cylinder_omesh, 204,800 cells
+SWEEP_JAC_CHECK = (160, 80)      # its Jacobians held to the CPU here
+SWEEP_SEED = 6
+SWEEP_RUNS = 20
+SWEEP_JAC_RUNS = 5
+SWEEP_LIMITER_PARAM = {"WENO": 0.0, "VENKATAKRISHNAN": 20.0}
+SWEEP_FLUXES = ("LLF", "VANLEER", "AUSM", "AUSMPLUS", "ROE", "HLL", "HLLC")
+SWEEP_COMBOS = (tuple((f, "LEASTSQUARES", "LINEAR") for f in SWEEP_FLUXES)
+                + tuple(("HLLC", "LEASTSQUARES", r) for r in (
+                    "NONE", "LINEAR", "WENO", "BARTHJESPERSEN",
+                    "VENKATAKRISHNAN", "VANALBADA"))
+                + (("HLLC", "GREENGAUSS", "LINEAR"),))
+NACA_CTRL = "fvens_tpu_torch/cases/ctrl/naca0012-transonic.ctrl"
+NACA_SOLVERC = "fvens_tpu_torch/cases/ctrl/naca0012-transonic.solverc"
+NACA_MESH = (640, 320)           # phase B1: naca0012_omesh, 204,800 cells
+# its main solve, capped at NACA_MAIN_STEPS of the ctrl's steps (the phase
+# < 120 s), does not reach the ctrl's tolerance: its relative residual is
+# held within a factor NACA_TRACK of the H100's readings of the same run at
+# these steps (PERF.md section 5), and at most NACA_LEVEL at the cap
+NACA_MAIN_STEPS = 300
+NACA_CARD_RELRES = {50: 1.860e-01, 100: 6.311e-02, 150: 3.158e-02,
+                    200: 1.443e-02, 250: 5.876e-03, 300: 3.024e-03}
+NACA_TRACK = 10.0
+NACA_LEVEL = 1e-2
+NACA_CHECK_MESH = (160, 80)      # held to the JAX record here
+NACA_AGREE_STEPS = 20
+LIMITED_MAIN_STEPS = 20          # phase B2
+EXPLICIT_CTRL = "fvens_tpu_torch/cases/ctrl/cylinder-explicit.ctrl"
+EXPLICIT_MESH = (640, 320)       # phase C
+EXPLICIT_MAX_STEPS = 4000        # its cap (the phase < 60 s)
+EXPLICIT_CHECK_MESH = (160, 80)
+EXPLICIT_AGREE_STEPS = 200
+EXPLICIT_READBACK_STEPS = 300    # steps timed with and without read-back
+VORTEX_N = 512                   # phase D: 262,144 cells
+VORTEX_COARSE = 128
+VORTEX_T = 1.0
+HEAT_N = (256, 512)              # phase E: unit_square(n) quads
+CARD = ""                        # nvidia-smi's name and power limit
 
 # The small solves of step 9: the bench physics and solver on
 # naca0012_omesh(64, 16) from free stream. `ref` is the JAX package's
@@ -820,15 +907,14 @@ def cylinder_vs_record(dev, record=JAX_BIGMESH_RECORD, lin=None,
 def bench_path(dev):
     """The first slice's bench solve, counted."""
     import torch
-    from fvens_tpu_torch.cases.bench_case import (BENCH_MESH, MAX_STEPS,
-                                                  TOL_ABS, run_solve)
+    from fvens_tpu_torch.cases.bench_case import BENCH_MESH, TOL_ABS, run_solve
 
     solve, cm = run_solve(dev)
     print(f"mesh: naca0012_omesh{BENCH_MESH}, {cm.n_cells} cells", flush=True)
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    u, info = solve(max_steps=MAX_STEPS)
+    u, info = solve(max_steps=BENCH_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -841,19 +927,21 @@ def bench_path(dev):
                      final_res=info.finalres, tol_abs=TOL_ABS)
     print("bench solve", json.dumps(solve_rec), flush=True)
     ref = jax_record(order2=True, mixed=True)
+    ref_min = min(h[1] for h in ref["history"][:BENCH_STEPS])
     print("JAX package's solve", json.dumps(
         {k: ref[k] for k in ("converged", "steps", "krylov_iters",
                              "min_res", "final_res", "recoveries")}),
-          f"({JAX_RECORD})", flush=True)
+          f"({JAX_RECORD}); lowest residual in its first {BENCH_STEPS} "
+          f"steps {ref_min!r}", flush=True)
     if ref["converged"]:
         check(info.converged, f"the solve did not converge to {TOL_ABS} "
               f"in {info.steps} steps; the JAX package's did")
     else:
         print(f"bench solve: not converged to {TOL_ABS} in {info.steps} "
               "steps, nor is the JAX package's", flush=True)
-        check(ref["min_res"] / 10 <= min(res) <= 10 * ref["min_res"],
+        check(ref_min / 10 <= min(res) <= 10 * ref_min,
               f"lowest residual {min(res)!r} is not within 10x of the JAX "
-              f"package's {ref['min_res']!r}")
+              f"package's {ref_min!r} over its first {BENCH_STEPS} steps")
     check(u.shape == (cm.NC, 4) and u.dtype == torch.float64
           and bool(torch.isfinite(u).all()), "non-finite solution")
     check(all(np.isfinite(r) for r in res), "non-finite accepted residual")
@@ -962,12 +1050,14 @@ def write_cylinder_msh(path: str, ni: int, nj: int):
 
 
 def parse_cli_output(text: str) -> dict:
-    """What the CLI (either package's) printed: whether it resumed, the
-    starter's Krylov iterations per step (its monitor lines, labelled BE;
-    all of them with --log_every 1), the main solve's steps and Krylov
-    iterations, and the functionals."""
+    """What the CLI (either package's) printed: whether it resumed, how
+    many steps it retried after a blowup or NaN (their Krylov iterations
+    are in no monitor line), the starter's Krylov iterations per step (its
+    monitor lines, labelled BE; all of them with --log_every 1), the main
+    solve's steps and Krylov iterations, and the functionals."""
     import re
     out = dict(resumed="resumed from" in text,
+               retries=len(re.findall(r"retrying from", text)),
                starter_iters=[int(m.group(1)) for m in re.finditer(
                    r"^\s*BE \|\s+\d+ \|[^|]+\|[^|]+\|\s+(\d+) \|", text,
                    re.M)])
@@ -983,16 +1073,22 @@ def parse_cli_output(text: str) -> dict:
 
 def run_cli(argv: list, log: str) -> dict:
     """fvens_tpu_torch.cases.cli.main(argv) in this process, its standard
-    output captured into CLI_LOG_DIR/`log`. Returns the exit code, the
-    wall time and parse_cli_output of what it printed."""
+    output captured into CLI_LOG_DIR/`log`. Returns the exit code (or
+    "ToleranceError" where the solve stopped unconverged), the wall time
+    and parse_cli_output of what it printed."""
     import io
     from fvens_tpu_torch.cases import cli
+    from fvens_tpu_torch.solver.steady import ToleranceError
 
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
+    except ToleranceError:
+        # the solver's verdict on a run that stopped unconverged, as the
+        # JAX package's CLI raises it; the caller decides
+        rc = "ToleranceError"
     finally:
         text = buf.getvalue()
         os.makedirs(CLI_LOG_DIR, exist_ok=True)
@@ -1158,6 +1254,478 @@ def cli_vs_record(dev):
           "the functionals differ from the JAX package's by more than 1e-6")
 
 
+def card_line(kind: str, rec: dict):
+    """One path's record on a line of its own, with the card it ran on."""
+    print(kind, json.dumps(dict(rec, card=CARD)), flush=True)
+
+
+def sweep_config(flux="HLLC", gradient="LEASTSQUARES", reconstruction="LINEAR",
+                 flux_jacobian="CONSISTENT"):
+    """The cylinder case's physics with other numerics (WENO at lambda = 0
+    as every reference run has it, Venkatakrishnan at K = 20)."""
+    import dataclasses
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.config import NumericsConfig
+    return dataclasses.replace(
+        bigmesh_case.case_config(), numerics=NumericsConfig(
+            flux=flux, flux_jacobian=flux_jacobian, gradient=gradient,
+            reconstruction=reconstruction,
+            limiter_param=SWEEP_LIMITER_PARAM.get(reconstruction, 20.0)))
+
+
+def sweep_meshes(dev, ni, nj):
+    """(card mesh, CPU copy, card state, CPU state): cylinder_omesh(ni, nj)
+    at f64 and the free stream times (1 + 0.01 N(0, 1)) from SWEEP_SEED."""
+    import torch
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    from fvens_tpu_torch.mesh.device_mesh import compile_mesh
+    from fvens_tpu_torch.mesh.meshgen import cylinder_omesh
+    cfg = sweep_config()
+    md = cylinder_omesh(ni, nj, stretch=1.15 ** (20.0 / nj))
+    gm = compile_mesh(md, cfg.bcs, dtype=torch.float64, device=dev)
+    cm = gm.to(device="cpu")
+    uinf = build_space(cfg).uinf(torch.float64, "cpu").numpy()
+    rng = np.random.default_rng(SWEEP_SEED)
+    u = np.tile(uinf, (cm.NC, 1)) * (1.0 + 0.01 * rng.standard_normal(
+        (cm.NC, 4)))
+    uc = torch.from_numpy(u)
+    return gm, cm, uc.to(dev), uc
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, a on the card, b on the CPU."""
+    return float((a.cpu() - b).abs().max() / b.abs().max())
+
+
+def scheme_sweep(dev):
+    """Phase A: every flux, gradient scheme and reconstruction on the card
+    at SWEEP_MESH, each residual held to the port's CPU residual of the
+    same tensors (1e-12) and timed (CUDA events); each flux's slot
+    Jacobian, CONSISTENT and FROZEN, held to the CPU at SWEEP_JAC_CHECK
+    (1e-11) and timed at SWEEP_MESH. Returns the rows."""
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    gm, cm, ug, uc = sweep_meshes(dev, *SWEEP_MESH)
+    rows = []
+    for flux, grad, recon in SWEEP_COMBOS:
+        space = build_space(sweep_config(flux, grad, recon))
+        rg, dg = space.compute_residual(gm, ug, True)
+        rc, dc = space.compute_residual(cm, uc, True)
+        row = dict(what="residual", flux=flux, gradient=grad,
+                   reconstruction=recon, cells=gm.n_cells,
+                   rhs_rel_err=rel_err(rg, rc), dt_rel_err=rel_err(dg, dc))
+        check(bool(rg.isfinite().all()) and row["rhs_rel_err"] <= 1e-12
+              and row["dt_rel_err"] <= 1e-12,
+              f"the card's residual departs from the CPU's: {row}")
+        row["ms"] = event_ms(lambda: space.compute_residual(gm, ug, True),
+                             SWEEP_RUNS)
+        rows.append(row)
+        print("scheme sweep", json.dumps(row), flush=True)
+    jg, jc, jug, juc = sweep_meshes(dev, *SWEEP_JAC_CHECK)
+    for flux in SWEEP_FLUXES:
+        for mode in ("CONSISTENT", "FROZEN"):
+            space = build_space(sweep_config(flux, flux_jacobian=mode))
+            a, b = space.assemble_jacobian(jg, jug), space.assemble_jacobian(
+                jc, juc)
+            row = dict(what="jacobian", flux=flux, flux_jacobian=mode,
+                       cells=gm.n_cells, check_cells=jg.n_cells,
+                       D_rel_err=rel_err(a.D, b.D),
+                       N_rel_err=rel_err(a.N, b.N))
+            check(row["D_rel_err"] <= 1e-11 and row["N_rel_err"] <= 1e-11,
+                  f"the card's Jacobian departs from the CPU's: {row}")
+            row["ms"] = event_ms(lambda: space.assemble_jacobian(gm, ug),
+                                 SWEEP_JAC_RUNS)
+            rows.append(row)
+            print("scheme sweep", json.dumps(row), flush=True)
+    print(f"scheme sweep at cylinder_omesh{SWEEP_MESH}, f64, card {CARD}:")
+    print("  | what | flux | gradient / Jacobian | reconstruction | ms |")
+    for r in rows:
+        print(f"  | {r['what']} | {r['flux']} | "
+              f"{r.get('gradient', r.get('flux_jacobian'))} | "
+              f"{r.get('reconstruction', '')} | {r['ms']:.4f} |", flush=True)
+    return rows
+
+
+def record_part(part: str) -> dict:
+    return _load(JAX_SCHEMES_RECORD)[part]
+
+
+def capped_ctrl(src: str, path: str, subs: dict) -> str:
+    """Writes the ctrl `src` to `path` with each `old: new` replaced."""
+    with open(src) as f:
+        text = f.read()
+    for old, new in subs.items():
+        check(old in text, f"{src} has no '{old}'")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def naca_cli_path(dev):
+    """Phase B1: the CLI on the transonic NACA0012 ctrl at NACA_MESH, f64
+    on the gather path (blocked GMRES, row_set on every Krylov iteration),
+    with the main solve capped at NACA_MAIN_STEPS. A relative residual
+    falls more slowly on the finer mesh (at main step 150, 3.2e-2 at
+    640x320 against 1.3e-3 at 160x80 on the card), so the run is not held
+    to the JAX record's level (at NACA_CHECK_MESH; printed beside it) but
+    to the card's own: it must stop at the cap with no retried step, its
+    relative residual within a factor NACA_TRACK of NACA_CARD_RELRES at
+    each of those steps and at most NACA_LEVEL at the cap. Returns the
+    launches."""
+    import tempfile
+    import torch
+    from fvens_tpu_torch.cases.convertformat import write_gmsh2
+    from fvens_tpu_torch.mesh.meshgen import naca0012_omesh
+    rec = record_part("naca")
+    ni, nj = NACA_MESH
+    with tempfile.TemporaryDirectory() as tmp:
+        msh = os.path.join(tmp, "naca.msh")
+        write_gmsh2(msh, naca0012_omesh(ni, nj))
+        hist = os.path.join(tmp, "history.jsonl")
+        ctrl = capped_ctrl(NACA_CTRL, os.path.join(tmp, "capped.ctrl"), {
+            "max_timesteps  5000": f"max_timesteps  {NACA_MAIN_STEPS}"})
+        torch.cuda.synchronize()
+        zero_counts()
+        run = run_cli([ctrl, "--mesh_file", msh, "-options_file",
+                       NACA_SOLVERC, "--device", dev.type, "--log_every",
+                       "1", "--functionals_every", str(CLI_FUNCTIONALS_EVERY),
+                       "--history", hist], f"cli_naca_{ni}x{nj}.log")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        rows = read_jsonl(hist)
+    check(run["rc"] == "ToleranceError" and len(rows) == NACA_MAIN_STEPS,
+          f"the CLI exited {run['rc']} after {len(rows)} main steps; it "
+          f"should stop at the cap of {NACA_MAIN_STEPS}")
+    main_its = sum(r["lin_iters"] for r in rows)
+    its = sum(run["starter_iters"]) + main_its
+    rel = [r["relres"] for r in rows]
+    logged = [r for r in rows if "CL" in r]
+    rep = dict(mesh=f"naca0012_omesh{NACA_MESH}", cells=ni * nj,
+               exit=run["rc"], wall_s=run["wall_s"],
+               starter_steps=len(run["starter_iters"]),
+               starter_krylov_iters=sum(run["starter_iters"]),
+               main_steps=len(rows), main_krylov_iters=main_its,
+               main_s_per_step=(rows[-1]["wall_s"] - rows[0]["wall_s"])
+               / max(len(rows) - 1, 1), retries=run["retries"],
+               min_relres=min(rel), final_relres=rel[-1],
+               relres_at={s: rel[s - 1] for s in NACA_CARD_RELRES},
+               functionals=({k: logged[-1][k] for k in ("step",)
+                             + FUNCTIONALS} if logged else None),
+               record=dict(converged=rec["converged"],
+                           min_relres=rec["main"]["min_relres"],
+                           main_steps=rec["main"]["steps"]),
+               launches=launches)
+    card_line("naca cli", rep)
+    # a retried step's Krylov iterations launch row_set too, and no
+    # monitor line or history row counts them
+    check(its > 0 and (launches["row_set"] == its if not run["retries"]
+                       else launches["row_set"] > its),
+          f"{launches['row_set']} row_set launches for {its} Krylov "
+          f"iterations (starter and main) and {run['retries']} retries")
+    check(launches["banded_apply"] == launches["banded_bsgs"] == 0,
+          f"the CLI launched a banded kernel: {launches}")
+    check(all(np.isfinite(r["absres"]) for r in rows) and logged
+          and all(np.isfinite(r[k]) for r in logged for k in FUNCTIONALS),
+          "non-finite residuals or functionals")
+    off = {s: rel[s - 1] for s, want in NACA_CARD_RELRES.items()
+           if not want / NACA_TRACK <= rel[s - 1] <= want * NACA_TRACK}
+    check(not run["retries"] and not off and rel[-1] <= NACA_LEVEL,
+          f"{run['retries']} retries; relative residuals {off} not within "
+          f"{NACA_TRACK}x of {NACA_CARD_RELRES}; {rel[-1]!r} at the cap "
+          f"(at most {NACA_LEVEL})")
+    return launches
+
+
+def naca_cli_vs_record(dev):
+    """Phase B1 at NACA_CHECK_MESH: the CLI against the JAX package's CLI on
+    the same files (JAX_SCHEMES_RECORD): the starter step for step (Krylov
+    iterations), the first NACA_AGREE_STEPS main steps step for step
+    (iterations, residuals to 1e-9 relative with a floor of 1e-12 of the
+    first main residual), the main totals within 10% and, where the
+    record converged, the functionals to 1e-8."""
+    import tempfile
+    rec = record_part("naca")
+    ni, nj = NACA_CHECK_MESH
+    from fvens_tpu_torch.cases.convertformat import write_gmsh2
+    from fvens_tpu_torch.mesh.meshgen import naca0012_omesh
+    with tempfile.TemporaryDirectory() as tmp:
+        msh = os.path.join(tmp, "naca.msh")
+        write_gmsh2(msh, naca0012_omesh(ni, nj))
+        hist = os.path.join(tmp, "history.jsonl")
+        run = run_cli([NACA_CTRL, "--mesh_file", msh, "-options_file",
+                       NACA_SOLVERC, "--device", dev.type, "--log_every",
+                       "1", "--history", hist], f"cli_naca_{ni}x{nj}.log")
+        rows = read_jsonl(hist)
+    ref = rec["main"]
+    print(f"naca cli {ni}x{nj}: exit {run['rc']}, starter "
+          f"{len(run['starter_iters'])} / {sum(run['starter_iters'])}, main "
+          f"{len(rows)} / {sum(r['lin_iters'] for r in rows)}, lowest "
+          f"{min(r['relres'] for r in rows)!r}; the JAX package's: exit "
+          f"{rec['exit']}, starter {rec['starter']['steps']} / "
+          f"{rec['starter']['krylov_iters']}, main {ref['steps']} / "
+          f"{ref['krylov_iters']}, lowest {ref['min_relres']!r}", flush=True)
+    check(run["rc"] == ("ToleranceError" if not rec["converged"] else 0),
+          f"the {ni}x{nj} run exited {run['rc']}, the record {rec['exit']}")
+    check(run["starter_iters"] == rec["starter"]["lin_iters"],
+          "the starter departs from the JAX package's")
+    check(len(rows) >= NACA_AGREE_STEPS, f"only {len(rows)} main steps")
+    floor = 1e-12 * ref["history"][0]["absres"]
+    for r, q in zip(rows[:NACA_AGREE_STEPS], ref["history"]):
+        check(r["lin_iters"] == q["lin_iters"]
+              and abs(r["absres"] - q["absres"])
+              <= max(1e-9 * q["absres"], floor),
+              f"main step {r['step']}: iterations {r['lin_iters']} vs "
+              f"{q['lin_iters']}, residual {r['absres']!r} vs "
+              f"{q['absres']!r}")
+    its = sum(r["lin_iters"] for r in rows)
+    check(abs(len(rows) - ref["steps"]) <= 0.1 * ref["steps"]
+          and abs(its - ref["krylov_iters"]) <= 0.1 * ref["krylov_iters"],
+          f"main totals {len(rows)} / {its} not within 10% of the JAX "
+          f"package's {ref['steps']} / {ref['krylov_iters']}")
+    if rec["converged"]:
+        check(same_functionals(run, rec["functionals"], 1e-8),
+              "the functionals differ from the JAX package's")
+
+
+def limited_banded_path(dev):
+    """Phase B2: the banded cylinder case at BIGMESH with Venkatakrishnan
+    (K = 20), mixed precision: the starter, then LIMITED_MAIN_STEPS main
+    steps through K1, K1b and K2; finite, falling residuals. Returns the
+    launches."""
+    import dataclasses
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.cases.casesolvers import SteadyFlowCase, build_space
+    _, cm, u = bigmesh_case.build_case(dev, *bigmesh_case.BIGMESH)
+    cfg = dataclasses.replace(
+        bigmesh_case.case_config(), numerics=dataclasses.replace(
+            bigmesh_case.case_config().numerics,
+            reconstruction="VENKATAKRISHNAN", limiter_param=20.0))
+    case = SteadyFlowCase(cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    u = case.execute_starter(cm, u)
+    solver = case._make_solver(build_space(cfg), cfg.main)
+    tm = time.perf_counter()
+    u, info = solver.solve(cm, u, max_steps=LIMITED_MAIN_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    st = case.starter_info
+    res = [h[2] for h in info.history]
+    its = st.total_lin_iters + info.total_lin_iters
+    card_line("limited banded", dict(
+        mesh=f"cylinder_omesh{bigmesh_case.BIGMESH}", cells=cm.n_cells,
+        reconstruction="VENKATAKRISHNAN", limiter_param=20.0,
+        starter_steps=st.steps, starter_krylov_iters=st.total_lin_iters,
+        main_steps=info.steps, main_krylov_iters=info.total_lin_iters,
+        wall_s=t1 - t0, main_s_per_step=(t1 - tm) / max(info.steps, 1),
+        cell_updates_per_s=cm.n_cells * info.steps / (t1 - tm),
+        residuals=res, launches=launches))
+    check(info.steps == LIMITED_MAIN_STEPS and bool(torch.isfinite(u).all())
+          and all(np.isfinite(r) for r in res),
+          f"the limited run took {info.steps} steps or went non-finite")
+    check(res[-1] < res[0], f"the limited main residual did not fall: {res}")
+    check(launches["row_set"] == its and its > 0
+          and launches["banded_bsgs"] >= its
+          and its <= launches["banded_apply"] < 2 * its,
+          f"limited launches {launches} for {its} Krylov iterations")
+    return launches
+
+
+def explicit_cli_path(dev):
+    """Phase C: the CLI on cylinder-explicit.ctrl at EXPLICIT_MESH, to the
+    relative residual the JAX record reaches at 160x80 (the ctrl's
+    tolerance) or EXPLICIT_MAX_STEPS steps; then at EXPLICIT_CHECK_MESH its
+    first EXPLICIT_AGREE_STEPS steps against the record's to 1e-10
+    relative. No kernel launches (no Krylov solve). Returns the launches."""
+    import tempfile
+    import torch
+    rec = record_part("explicit")
+    ni, nj = EXPLICIT_MESH
+    with tempfile.TemporaryDirectory() as tmp:
+        msh = os.path.join(tmp, "cyl.msh")
+        write_cylinder_msh(msh, ni, nj)
+        hist = os.path.join(tmp, "history.jsonl")
+        ctrl = capped_ctrl(EXPLICIT_CTRL, os.path.join(tmp, "full.ctrl"), {
+            "max_timesteps  100000": f"max_timesteps  {EXPLICIT_MAX_STEPS}"})
+        torch.cuda.synchronize()
+        zero_counts()
+        run = run_cli([ctrl, "--mesh_file", msh, "--device", dev.type,
+                       "--log_every", "1000", "--history", hist],
+                      f"cli_explicit_{ni}x{nj}.log")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        rows = read_jsonl(hist)
+        ci, cj = EXPLICIT_CHECK_MESH
+        msh2 = os.path.join(tmp, "cyl2.msh")
+        write_cylinder_msh(msh2, ci, cj)
+        hist2 = os.path.join(tmp, "history2.jsonl")
+        ctrl2 = capped_ctrl(EXPLICIT_CTRL, os.path.join(tmp, "first.ctrl"), {
+            "max_timesteps  100000":
+            f"max_timesteps  {EXPLICIT_AGREE_STEPS}"})
+        run2 = run_cli([ctrl2, "--mesh_file", msh2, "--device", dev.type,
+                        "--log_every", "0", "--history", hist2],
+                       f"cli_explicit_{ci}x{cj}.log")
+        rows2 = read_jsonl(hist2)
+    steps = len(rows)
+    main_s = rows[-1]["wall_s"] - rows[0]["wall_s"]
+    rep = dict(mesh=f"cylinder_omesh{EXPLICIT_MESH}", cells=ni * nj,
+               exit=run["rc"], wall_s=run["wall_s"], steps=steps,
+               tolerance=rec["full"]["final_relres"],
+               final_relres=rows[-1]["relres"],
+               steps_per_s=(steps - 1) / main_s,
+               cell_updates_per_s=ni * nj * (steps - 1) / main_s,
+               record_160x80_steps=rec["full"]["steps"], launches=launches)
+    card_line("explicit cli", rep)
+    check(run["rc"] in (0, "ToleranceError")
+          and all(np.isfinite(r["absres"]) for r in rows),
+          f"the explicit CLI run exited {run['rc']} or went non-finite")
+    check(run["rc"] == 0 or steps == EXPLICIT_MAX_STEPS,
+          f"the run stopped after {steps} steps")
+    check(all(n == 0 for n in launches.values()),
+          f"the explicit run launched a kernel: {launches}")
+    ref = rec["first"]["history"]
+    check(run2["rc"] == "ToleranceError" and len(rows2) == len(ref),
+          f"the {EXPLICIT_CHECK_MESH} run took {len(rows2)} steps")
+    worst = max(abs(r["absres"] - q["absres"]) / q["absres"]
+                for r, q in zip(rows2, ref))
+    print(f"explicit cli {EXPLICIT_CHECK_MESH}: {len(rows2)} steps, worst "
+          f"relative residual difference from the record {worst:.3e}",
+          flush=True)
+    check(worst <= 1e-10, "the explicit run departs from the JAX package's")
+    card_line("explicit read-back", explicit_readback_cost(dev))
+    return launches
+
+
+def explicit_readback_cost(dev, steps=EXPLICIT_READBACK_STEPS) -> dict:
+    """What SteadyForwardEuler's one residual read-back per step costs at
+    EXPLICIT_MESH: `steps` steps with .item() after each (the solver's
+    loop), and the same steps queued with one synchronize at the end."""
+    import torch
+    from fvens_tpu_torch.cases.casesolvers import build_space, initial_state
+    from fvens_tpu_torch.io_config import parse_control_file
+    from fvens_tpu_torch.mesh.device_mesh import compile_mesh
+    from fvens_tpu_torch.mesh.meshgen import cylinder_omesh
+    from fvens_tpu_torch.solver.steady import SteadyForwardEuler
+    cfg = parse_control_file(EXPLICIT_CTRL)
+    ni, nj = EXPLICIT_MESH
+    mesh = compile_mesh(cylinder_omesh(ni, nj, stretch=1.15 ** (20.0 / nj)),
+                        cfg.bcs, dtype=torch.float64, device=dev)
+    solver = SteadyForwardEuler(build_space(cfg), cfg.main)
+    out = {}
+    for name in ("read_back", "queued", "read_back_again"):
+        u = initial_state(solver.space, mesh)
+        solver._step(mesh, u)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            u, res = solver._step(mesh, u)
+            if name != "queued":
+                res.item()
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+    return dict(mesh=f"cylinder_omesh{EXPLICIT_MESH}", steps=steps, **out)
+
+
+def vortex_path(dev):
+    """Phase D: TVD-RK3 at CFL 0.8 on the VORTEX_N periodic vortex box to
+    VORTEX_T (Roe, least squares, LINEAR): mass conserved to 1e-10, the L2
+    density error under half the vortex's own deviation and at least 4x
+    below the VORTEX_COARSE run's; at 64x64 to t = 0.5 the record's step
+    count, t to 1e-12 and state to 1e-10. Returns the launches."""
+    import base64
+    import torch
+    from fvens_tpu_torch.cases import model_problems as mp
+    from fvens_tpu_torch.solver.unsteady import TVDRKSolver
+    rec = record_part("vortex")
+    n, t_end = rec["case"]["n"], rec["case"]["final_time"]
+    space, mesh, u0 = mp.vortex_case(dev, n)
+    u, t, steps = TVDRKSolver(space, order=3, cfl=0.8).solve(mesh, u0, t_end)
+    want = np.frombuffer(base64.b64decode(rec["state_f64_base64"]),
+                         dtype="<f8").reshape(rec["state_shape"])
+    err = float(np.abs(u.cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"vortex {n}x{n} to t={t_end}: {steps} steps (record "
+          f"{rec['steps']}), t {t!r}, state relative difference {err:.3e}",
+          flush=True)
+    check(steps == rec["steps"] and abs(t - rec["t"]) <= 1e-12
+          and err <= 1e-10, "the 64x64 vortex departs from the JAX record")
+    out = {}
+    for n in (VORTEX_COARSE, VORTEX_N):
+        space, mesh, u0 = mp.vortex_case(dev, n)
+        solver = TVDRKSolver(space, order=3, cfl=0.8)
+        torch.cuda.synchronize()
+        if n == VORTEX_N:
+            zero_counts()
+        t0 = time.perf_counter()
+        u, t, steps = solver.solve(mesh, u0, VORTEX_T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[n] = dict(n=n, cells=mesh.n_cells, steps=steps, t=t, wall_s=wall,
+                      s_per_step=wall / steps,
+                      cell_updates_per_s=mesh.n_cells * steps / wall,
+                      finite=bool(torch.isfinite(u).all()),
+                      **mp.vortex_errors(mesh, u0, u, t))
+    launches = read_counts()
+    fine, coarse = out[VORTEX_N], out[VORTEX_COARSE]
+    card_line("vortex", dict(fine, coarse_l2_error=coarse["l2_error"],
+                             coarse_steps=coarse["steps"],
+                             launches=launches))
+    check(fine["finite"] and abs(fine["t"] - VORTEX_T) <= 1e-12,
+          "the vortex run went non-finite or missed its final time")
+    check(abs(fine["mass"] - fine["mass0"]) <= 1e-10 * fine["mass0"],
+          "mass not conserved")
+    check(fine["l2_error"] < 0.5 * fine["l2_vortex"]
+          and 4.0 * fine["l2_error"] <= coarse["l2_error"],
+          f"vortex error {fine['l2_error']!r} (vortex {fine['l2_vortex']!r},"
+          f" {VORTEX_COARSE}x{VORTEX_COARSE} {coarse['l2_error']!r})")
+    check(all(v == 0 for v in launches.values()),
+          f"the explicit vortex run launched a kernel: {launches}")
+    return launches
+
+
+def heat_path(dev):
+    """Phase E: DiffusionFV on unit_square(n) quads, implicit on the gather
+    path (bcsgs x3, V = 1 blocks) to 1e-9 at n in HEAT_N; at the largest,
+    n = 262,144 and blocked GMRES launches row_set once per Krylov
+    iteration. The L2 error order between the two must lie in [1.9, 2.1].
+    Returns the launches of the largest."""
+    import torch
+    from fvens_tpu_torch.cases import model_problems as mp
+    from fvens_tpu_torch.solver import linear
+    errs = {}
+    for n in HEAT_N:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        err, info, mesh = mp.heat_solve(dev, n, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        errs[n] = err
+        rep = dict(n=n, cells=mesh.n_cells, l2_error=err, steps=info.steps,
+                   krylov_iters=info.total_lin_iters, converged=info.converged,
+                   wall_s=wall, s_per_step=wall / max(info.steps, 1),
+                   blocked=mesh.NC >= linear._BLOCKED_N_THRESHOLD,
+                   launches=launches)
+        card_line("heat", rep)
+        check(info.converged and np.isfinite(err),
+              f"the heat solve at n = {n} did not converge")
+        want = info.total_lin_iters if rep["blocked"] else 0
+        check(launches["row_set"] == want
+              and launches["banded_apply"] == launches["banded_bsgs"] == 0,
+              f"heat launches {launches} for {info.total_lin_iters} Krylov "
+              "iterations")
+    a, b = HEAT_N[-2:]
+    order = float(np.log2(errs[a] / errs[b]) / np.log2(b / a))
+    print(f"heat L2 error order between n = {a} and {b}: {order:.4f}",
+          flush=True)
+    check(1.9 <= order <= 2.1, f"diffusion order {order} outside [1.9,2.1]")
+    check(rep["blocked"], "the largest heat solve did not run blocked")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1168,6 +1736,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
+    global CARD
+    CARD = smi
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fvens_tpu_torch.cases.bench_case import bench_solver
 
@@ -1204,7 +1774,7 @@ def main() -> int:
         with phase(f"{check_mesh} gather {lin['pc']} "
                    f"{'blocked' if blocked else 'classic'} vs the JAX record"):
             cylinder_vs_record(dev, JAX_GATHER_RECORD, lin, blocked)
-    with phase("bench 600-step solve"):
+    with phase(f"bench {BENCH_STEPS}-step solve"):
         cm = bench_path(dev)
     with phase("bench first-order solve"):
         bench_first_order(dev, cm)
@@ -1216,6 +1786,27 @@ def main() -> int:
         _, paths[f"cli {CLI_MESH[0]}x{CLI_MESH[1]}"] = cli_path(dev)
     with phase(f"cli {check_mesh[9:]} vs the JAX record"):
         cli_vs_record(dev)
+    with phase(f"A: scheme sweep at {SWEEP_MESH[0]}x{SWEEP_MESH[1]}"):
+        scheme_sweep(dev)
+    naca = f"naca cli {NACA_MESH[0]}x{NACA_MESH[1]}"
+    with phase(f"B1: {naca}"):
+        paths[naca] = naca_cli_path(dev)
+    with phase(f"B1: naca cli {NACA_CHECK_MESH[0]}x{NACA_CHECK_MESH[1]} vs "
+               "the JAX record"):
+        naca_cli_vs_record(dev)
+    limited = "cylinder 640x320 banded Venkatakrishnan, starter + " \
+        f"{LIMITED_MAIN_STEPS} main steps"
+    with phase(f"B2: {limited}"):
+        paths[limited] = limited_banded_path(dev)
+    explicit = f"explicit cli {EXPLICIT_MESH[0]}x{EXPLICIT_MESH[1]}"
+    with phase(f"C: {explicit}"):
+        paths[explicit] = explicit_cli_path(dev)
+    vortex = f"vortex TVD-RK3 {VORTEX_N}x{VORTEX_N}"
+    with phase(f"D: {vortex}"):
+        paths[vortex] = vortex_path(dev)
+    heat = f"heat {HEAT_N[-1]}x{HEAT_N[-1]}"
+    with phase(f"E: {heat}"):
+        paths[heat] = heat_path(dev)
 
     def main_row(rows, **want):
         return next(r for r in rows if r["dtype"] == "float32"

@@ -1,3 +1,5 @@
-from .casesolvers import build_space, initial_state
+from .casesolvers import (SteadyFlowCase, UnsteadyFlowCase, build_space,
+                          initial_state)
 
-__all__ = ["build_space", "initial_state"]
+__all__ = ["SteadyFlowCase", "UnsteadyFlowCase", "initial_state",
+           "build_space"]

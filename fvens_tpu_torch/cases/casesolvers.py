@@ -1,13 +1,13 @@
-"""Steady flow cases (the reference's case API,
-FVENS src/utilities/casesolvers.cpp): the spatial discretization from a case
-config, the free-stream initial state, the case mesh from its file, and
+"""Flow cases (the reference's case API, FVENS
+src/utilities/casesolvers.cpp): the spatial discretization from a case
+config, the free-stream initial state, the case mesh from its file;
 SteadyFlowCase: the first-order low-tolerance STARTER solve (:225-314,
 tolerance failures swallowed) followed by the second-order MAIN solve
-(:316-386), with checkpoints and functionals logged during the main solve,
-and the output functionals (entropy error, CL, CDp, CDsf) of the result.
-
-Explicit pseudo-time stepping is still to be ported (ROADMAP queue 1 item
-7) and raises NotImplementedError.
+(:316-386), each implicit or explicit as its PseudoTimeConfig says, with
+checkpoints and functionals logged during an implicit main solve, and the
+output functionals (entropy error, CL, CDp, CDsf) of the result; and
+UnsteadyFlowCase: TVD-RK physical-time integration to the final time
+(:420-447).
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ from ..mesh.reader import read_mesh
 from ..output import (FlowSolutionFunctionals, entropy_error,
                       make_functionals, surface_data)
 from ..physics.gas import GasPhysics
-from ..solver.steady import SolveInfo, SteadyBackwardEuler, ToleranceError
+from ..solver.steady import (SolveInfo, SteadyBackwardEuler,
+                             SteadyForwardEuler, ToleranceError)
+from ..solver.unsteady import TVDRKSolver
 
 
 def build_space(cfg: FlowCaseConfig, order2: bool | None = None) -> FlowFV:
@@ -64,13 +66,12 @@ class SteadyFlowCase:
                                                        init=False)
 
     def _make_solver(self, space, pt, checkpoint: bool = False):
-        """The implicit solver of one phase; the main phase (`checkpoint`)
+        """The solver of one phase: SteadyForwardEuler for explicit
+        stepping, else SteadyBackwardEuler, whose main phase (`checkpoint`)
         takes the case's checkpoint file and, with functionals_every and
         wall markers, the functional evaluator."""
         if pt.stepping == "explicit":
-            raise NotImplementedError(
-                "not ported yet: explicit pseudo-time stepping "
-                "(SteadyForwardEuler, ROADMAP queue 1 item 7)")
+            return SteadyForwardEuler(space, pt)
         fn = None
         if checkpoint and self.cfg.functionals_every and self.cfg.wall_markers:
             fn = make_functionals(space, self.cfg.wall_markers)
@@ -119,6 +120,41 @@ class SteadyFlowCase:
         """Solve and compute output functionals (casesolvers.cpp:75-164)."""
         u, info = self.solve(mesh, u, log_every=log_every, logger=logger)
         space = build_space(self.cfg)
+        ent = entropy_error(space, mesh, u)
+        CL = CDp = CDsf = 0.0
+        if self.cfg.wall_markers:
+            _, (CL, CDp, CDsf) = surface_data(space, mesh, u,
+                                              self.cfg.wall_markers)
+        return u, info, FlowSolutionFunctionals(mesh_size=mesh.h_param,
+                                                entropy=ent, CL=CL, CDp=CDp,
+                                                CDsf=CDsf)
+
+
+@dataclasses.dataclass
+class UnsteadyFlowCase:
+    """Physical-time integration case (reference UnsteadyFlowCase,
+    casesolvers.cpp:420-447: TVDRK is the only integrator implemented).
+    Free-stream init, TVD-RK stages to cfg.final_time."""
+    cfg: FlowCaseConfig
+
+    def solve(self, mesh, u=None) -> tuple:
+        """(u, t, steps) from `u` (default: free stream)."""
+        if self.cfg.time_integrator != "TVDRK":
+            raise ValueError(
+                f"unknown time integrator '{self.cfg.time_integrator}'; "
+                "only TVDRK is implemented (as in the reference)")
+        space = build_space(self.cfg)
+        if u is None:
+            u = initial_state(space, mesh)
+        solver = TVDRKSolver(space, order=self.cfg.time_order,
+                             cfl=self.cfg.phy_cfl)
+        return solver.solve(mesh, u, self.cfg.final_time)
+
+    def run_output(self, mesh, u=None
+                   ) -> tuple[torch.Tensor, SolveInfo, FlowSolutionFunctionals]:
+        u, t, nsteps = self.solve(mesh, u)
+        space = build_space(self.cfg)
+        info = SolveInfo(converged=True, steps=nsteps)
         ent = entropy_error(space, mesh, u)
         CL = CDp = CDsf = 0.0
         if self.cfg.wall_markers:

@@ -8,14 +8,13 @@ Usage:  python -m fvens_tpu_torch.cases.cli case.ctrl [--mesh_file m.msh]
 The twin of the JAX package's cases/cli.py, mirroring the reference's
 fvens_steady program (FVENS src/fvens_steady.cpp:15-57): parse the control
 file (and the PETSc options file), read the mesh, free-stream init,
-starter + main solve, then write functionals, surface data, the volume
-table and VTU output. It runs
-on the CUDA card unless `--device cpu` is given; there is no fallback from
-one to the other.
+starter + main solve (implicit or explicit pseudo-time), or for an unsteady
+control file TVD-RK stepping to its final time, then write functionals,
+surface data, the volume table and VTU output. It runs on the CUDA card
+unless `--device cpu` is given; there is no fallback from one to the other.
 
-Not ported yet, and refused with NotImplementedError: unsteady control
-files and explicit pseudo-time stepping (ROADMAP queue 1 item 7), the
-domain-decomposed run `--devices` (item 9) and `--pipeline` (pipelined
+Not ported yet, and refused with NotImplementedError: the domain-decomposed
+run `--devices` (ROADMAP queue 1 item 9) and `--pipeline` (pipelined
 stepping is ported only once an H100 measurement shows the per-step host
 sync costs time).
 """
@@ -91,13 +90,9 @@ def main(argv=None) -> int:
     from ..mesh.device_mesh import compile_mesh
     from ..mesh.reader import read_mesh
     from ..output import cell_fields, surface_data, volume_data
-    from .casesolvers import SteadyFlowCase, build_space
+    from .casesolvers import SteadyFlowCase, UnsteadyFlowCase, build_space
 
     cfg = parse_control_file(args.control_file, mesh_file=args.mesh_file)
-    if cfg.sim_type == "unsteady":
-        raise NotImplementedError(
-            "not ported yet: unsteady control files (TVD-RK physical-time "
-            "stepping, ROADMAP queue 1 item 7)")
     if args.device == "cuda" and not torch.cuda.is_available():
         print("fvens_tpu_torch: no CUDA device (torch.cuda.is_available() "
               "is false); pass --device cpu to run on the CPU",
@@ -146,9 +141,16 @@ def main(argv=None) -> int:
                                print_every=args.log_every, label="main")
     t0 = time.perf_counter()
     try:
-        case = SteadyFlowCase(cfg)
-        u, info, fnls = case.run_output(mesh, log_every=args.log_every,
-                                        logger=logger)
+        if cfg.sim_type == "unsteady":
+            # ctrl-driven physical-time run (reference casesolvers.cpp:
+            # 424-444); writes the state at final_time
+            u, info, fnls = UnsteadyFlowCase(cfg).run_output(mesh)
+            print(f"fvens_tpu_torch: unsteady TVDRK{cfg.time_order} to "
+                  f"t={cfg.final_time} in {info.steps} steps")
+        else:
+            case = SteadyFlowCase(cfg)
+            u, info, fnls = case.run_output(mesh, log_every=args.log_every,
+                                            logger=logger)
     finally:
         logger.close()
     wall = time.perf_counter() - t0

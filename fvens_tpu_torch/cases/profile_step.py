@@ -1,7 +1,8 @@
 """Where one implicit step of a solve spends its time.
 
     python -m fvens_tpu_torch.cases.profile_step \
-        [--case bench|cylinder|cylinder-gather|rowset] [--pc bsgs|bcsgs]
+        [--case bench|cylinder|cylinder-gather|rowset|slot-gather]
+        [--pc bsgs|bcsgs] [--device cuda|cpu]
 
 `bench` (the default) is the bench solve of cases/bench_case.py on its
 naca0012_omesh(160, 80); `cylinder` is the main solve of
@@ -9,7 +10,9 @@ cases/bigmesh_case.py on its 640x320 mesh, after the first-order starter;
 `cylinder-gather` the same on the gather path (GATHER_BSGS, or with
 `--pc bcsgs` GATHER_BCSGS), whose matvec and preconditioner are plain
 PyTorch, so it runs once. `rowset` times the row_set kernel alone
-(rowset_profile). The others run WARM_STEPS steps, once through the CUDA
+(rowset_profile); `slot-gather` the gather path's slot gather alone, on
+the card or (`--device cpu`) on the CPU (slot_gather_profile). The others
+run WARM_STEPS steps, once through the CUDA
 kernels and once through the plain banded twins (pallas=False; blocked
 GMRES's basis appends stay the row_set kernel, which, as in the JAX
 package, no option turns off), then at that state:
@@ -215,10 +218,12 @@ def _pc_sweep_times(solver, ops, v):
 
 
 def _slot_gather_ways(mesh, x):
-    """Device ms of the gather matvec's (NC, 5) slot gather of x, four ways
-    in plain PyTorch, each held equal to x[idx]: x[idx], index_select of
-    rows, gather with an expanded index, and take of element indices (the
-    solver's, linear._gather_rows)."""
+    """ms of the gather matvec's (NC, 5) slot gather of x, five ways in
+    plain PyTorch, each held equal to x[idx]: x[idx], index_select of rows,
+    gather with an expanded index, take of element indices and index_select
+    of the same element indices from the flattened x (the solver's,
+    linear._gather_rows). Device time on the card, the host's median of 20
+    calls on the CPU."""
     NC, V = x.shape
     self_idx = torch.arange(NC, dtype=mesh.cell_nbrs.dtype, device=x.device)
     idx = torch.cat([self_idx[:, None], linear._nbrs_in_range(mesh)], dim=1)
@@ -228,14 +233,35 @@ def _slot_gather_ways(mesh, x):
     ways = {"index": lambda: x[idx],
             "index_select": lambda: torch.index_select(x, 0, flat),
             "gather_expanded": lambda: torch.gather(x, 0, expanded),
-            "take": lambda: torch.take(x, elems)}
+            "take": lambda: torch.take(x, elems),
+            "flat_index_select": lambda: x.reshape(-1).index_select(0, elems)}
     want = x[idx]
     out = {}
     for name, fn in ways.items():
         if not torch.equal(fn().reshape(want.shape), want):
             raise RuntimeError(f"slot gather '{name}' differs from x[idx]")
-        out[name] = device_ms(fn)
+        out[name] = (device_ms(fn) if x.is_cuda
+                     else sync_ms(x.device, fn, 20)[0])
     return out
+
+
+# the 640x320 solve's mesh, and the CPU tests' size
+SLOT_GATHER_MESHES = {"cuda": ((640, 320), (32, 16)), "cpu": ((32, 16),)}
+
+
+def slot_gather_profile(dev):
+    """The slot gather's ways (_slot_gather_ways) on the cylinder_omesh
+    meshes of SLOT_GATHER_MESHES, f32 and f64, on `dev`. Prints one "slot
+    gather" JSON line each."""
+    for ni, nj in SLOT_GATHER_MESHES[dev.type]:
+        _, cm, _ = bigmesh_case.build_case(dev, ni, nj)
+        g = torch.Generator(device=dev).manual_seed(0)
+        for dtype in (torch.float32, torch.float64):
+            x = torch.randn(cm.NC, 4, device=dev, dtype=dtype, generator=g)
+            rec = dict(mesh=[ni, nj], cells=cm.n_cells, dtype=str(dtype)[6:],
+                       device=dev.type, torch_threads=torch.get_num_threads(),
+                       ms=_slot_gather_ways(cm, x))
+            print("slot gather", json.dumps(rec), flush=True)
 
 
 def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench",
@@ -414,11 +440,17 @@ def _event_ms(fn, runs=50):
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=sorted(MESHES) + ["rowset"],
+    ap.add_argument("--case", choices=sorted(MESHES) + ["rowset",
+                                                         "slot-gather"],
                     default="bench")
     ap.add_argument("--pc", choices=sorted(GATHER), default="bsgs",
                     help="the preconditioner of --case cylinder-gather")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the device of --case slot-gather")
     args = ap.parse_args()
+    if args.case == "slot-gather":
+        slot_gather_profile(torch.device(args.device))
+        return
     dev = torch.device("cuda", 0)
     print(torch.cuda.get_device_name(dev), flush=True)
     if args.case == "rowset":

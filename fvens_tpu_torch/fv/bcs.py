@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from ..config import (BC_ADIABATIC_WALL, BC_EXTRAPOLATION, BC_FARFIELD,
-                      BC_INFLOWOUTFLOW, BC_ISOTHERMAL_WALL, BC_PERIODIC,
-                      BC_SLIPWALL, BC_SUBSONIC_INFLOW)
+from ..config import (BC_ADIABATIC_WALL, BC_DIRICHLET, BC_EXTRAPOLATION,
+                      BC_FARFIELD, BC_INFLOWOUTFLOW, BC_ISOTHERMAL_WALL,
+                      BC_PERIODIC, BC_SLIPWALL, BC_SUBSONIC_INFLOW)
 from ..physics.gas import GasPhysics
 
 
@@ -127,3 +127,10 @@ def ghost_state(phy: GasPhysics, ins, n, code, v0, v1, uinf, u_partner=None):
           torch.where(sel(BC_PERIODIC), gs_per,
                       ins))))))))
     return out
+
+
+def scalar_ghost_state(ins, code, v0):
+    """Scalar-problem (diffusion) ghost states: Dirichlet mirror
+    u_ghost = 2 b - u_in (reference diffusion.cpp compute_boundary_state)."""
+    gs_dir = 2.0 * v0[..., None] - ins
+    return torch.where((code == BC_DIRICHLET)[..., None], gs_dir, ins)

@@ -1,14 +1,14 @@
-"""Cell-gradient scheme of the main path: weighted least squares.
+"""Cell-gradient schemes: Green-Gauss and weighted least squares.
 
 Face-parallel formulation replacing the reference's omp-atomic scatter loops
-(FVENS src/spatial/agradientschemes.cpp:218-420): per-face quantities are
+(FVENS src/spatial/agradientschemes.cpp:62-420): per-face quantities are
 computed for the whole face batch, then accumulated per cell through the
 static incidence maps (mesh.cell_faces / cell_fsign) — a gather-sum whose
 order is fixed, not an atomic scatter.
 
 Input `w` is the (NC, V) cell field (primitive variables for the flow
 residual, flow_spatial.cpp:684-700) and `wg` the (NB, V) boundary ghost
-field. Output grads: (NC, 2, V). Green-Gauss is still to be ported.
+field. Output grads: (NC, 2, V).
 """
 
 from __future__ import annotations
@@ -22,6 +22,22 @@ def _face_states(mesh, w, wg):
     wl = w[mesh.f_left]                     # (NF,V)
     wr = torch.cat([wg, w[mesh.f_right[nb:]]])
     return wl, wr
+
+
+def green_gauss_gradients(mesh, w, wg):
+    """grad_c = 1/area_c sum_f sign_cf * ut_f * n_f * len_f, where ut is the
+    inverse-distance-weighted face value (agradientschemes.cpp:62-214)."""
+    wl, wr = _face_states(mesh, w, wg)
+    ut = mesh.f_wl[:, None] * wl + mesh.f_wr[:, None] * wr        # (NF,V)
+    fx = ut * (mesh.f_normal[:, 0] * mesh.f_len)[:, None]          # (NF,V)
+    fy = ut * (mesh.f_normal[:, 1] * mesh.f_len)[:, None]
+
+    gfx = fx[mesh.cell_faces]                                      # (NC,4,V)
+    gfy = fy[mesh.cell_faces]
+    s = mesh.cell_fsign[..., None]                                 # (NC,4,1)
+    gx = (s * gfx).sum(dim=1) * mesh.inv_area[:, None]
+    gy = (s * gfy).sum(dim=1) * mesh.inv_area[:, None]
+    return torch.stack([gx, gy], dim=1)                            # (NC,2,V)
 
 
 def least_squares_gradients(mesh, w, wg):
@@ -58,16 +74,14 @@ def zero_gradients(mesh, w, wg):
 
 GRADIENT_FUNCTIONS = {
     "NONE": zero_gradients,
+    "GREENGAUSS": green_gauss_gradients,
     "LEASTSQUARES": least_squares_gradients,
 }
 
 
 def get_gradient_scheme(name: str):
     """Factory (reference afactory.cpp:103-165)."""
-    key = name.upper()
-    if key in GRADIENT_FUNCTIONS:
-        return GRADIENT_FUNCTIONS[key]
-    if key == "GREENGAUSS":
-        raise NotImplementedError(
-            f"gradient scheme '{name}' is not ported yet")
-    raise ValueError(f"unknown gradient scheme '{name}'")
+    try:
+        return GRADIENT_FUNCTIONS[name.upper()]
+    except KeyError:
+        raise ValueError(f"unknown gradient scheme '{name}'") from None

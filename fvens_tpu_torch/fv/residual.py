@@ -5,7 +5,7 @@ FlowFV::compute_residual (FVENS src/spatial/flow_spatial.cpp:636-816),
 preserving the reference's exact operation order for second-order accuracy:
 
   cell conserved -> boundary ghost states (BCs) -> primitive variables ->
-  cell gradients (of primitives) -> (unlimited) reconstruction in primitives
+  cell gradients (of primitives) -> (limited) reconstruction in primitives
   -> face states back to conserved -> flux-side boundary ghosts -> face
   fluxes (inviscid + viscous) -> signed incidence sums into cells -> local
   timesteps.
@@ -29,8 +29,8 @@ from ..physics.gas import GasPhysics
 from . import bcs
 from .fluxes import get_flux
 from .gradients import get_gradient_scheme
-from .reconstruction import (cell_limited_gradients, check_reconstruction,
-                             extrapolate_faces)
+from .reconstruction import (cell_limited_gradients, extrapolate_faces,
+                             get_reconstruction)
 from .viscous import (modified_average_gradient, prim2_states_and_gradients,
                       viscous_face_flux)
 
@@ -48,7 +48,7 @@ class FlowFV:
     def __post_init__(self):
         get_flux(self.ncfg.flux)  # validate early
         get_gradient_scheme(self.ncfg.gradient)
-        check_reconstruction(self.ncfg.reconstruction)
+        get_reconstruction(self.ncfg.reconstruction)
 
     # -- pieces ---------------------------------------------------------------
     def uinf(self, dtype: torch.dtype, device: torch.device | str):
@@ -85,9 +85,15 @@ class FlowFV:
                      if self.ncfg.reconstruction != "NONE" else "LINEAR")
             lgrad = cell_limited_gradients(mesh, up, ugp, grads, rname,
                                            self.ncfg.limiter_param)
-            wL, wR = extrapolate_faces(mesh, up, lgrad)
+            if lgrad is not None:
+                wL, wR = extrapolate_faces(mesh, up, lgrad)
+            else:
+                # face-based reconstruction (MUSCL-VanAlbada)
+                recon = get_reconstruction(rname)
+                wL, wR = recon(mesh, up, ugp, grads, self.ncfg.limiter_param)
             # positivity safeguard: where reconstruction overshoots into
-            # negative density/pressure, fall back to the first-order cell
+            # negative density/pressure (possible at strong shocks even with
+            # limiters), fall back to the first-order cell
             # value at that face side; every flux takes sqrt(p), so
             # unphysical face states would otherwise NaN the whole residual
             wl_cell = up[mesh.f_left]

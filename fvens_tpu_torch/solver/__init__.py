@@ -1,3 +1,3 @@
-from .steady import SteadyBackwardEuler, SolveInfo
+from .steady import SolveInfo, SteadyBackwardEuler, SteadyForwardEuler
 
-__all__ = ["SteadyBackwardEuler", "SolveInfo"]
+__all__ = ["SteadyBackwardEuler", "SteadyForwardEuler", "SolveInfo"]

@@ -56,12 +56,15 @@ def _row_elements(idx, V: int):
 
 def _gather_rows(x, elems, shape):
     """x[idx] for a contiguous (n, V) x, with elems = _row_elements(idx, V)
-    and idx of `shape`: the same values, gathered element by element. On
-    CUDA PyTorch gathers 16-byte rows (x[idx], index_select) with its
-    vectorized gather kernel, one 32-thread block per index: 0.5 ms for the
-    (NC, 5) gather of the 640x320 matvec on an H100 (PERF.md section 5;
-    profile_step --case cylinder-gather)."""
-    return torch.take(x, elems).reshape(*shape, x.shape[1])
+    and idx of `shape`: the same values, gathered element by element from
+    the flat tensor. On CUDA PyTorch gathers 16-byte rows (x[idx],
+    index_select of rows) with its vectorized gather kernel, one 32-thread
+    block per index: 0.62 ms for the (NC, 5) gather of the 640x320 matvec
+    on an H100, against 0.024 ms element by element, as fast as torch.take
+    (PERF.md section 5; profile_step --case slot-gather). On the CPU
+    torch.take can hand even a few thousand elements to the thread pool;
+    index_select does not."""
+    return x.reshape(-1).index_select(0, elems).reshape(*shape, x.shape[1])
 
 
 def _slot_operand(blocks):

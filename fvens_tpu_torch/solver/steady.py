@@ -1,13 +1,17 @@
-"""Steady-state pseudo-time continuation: implicit backward Euler.
+"""Steady-state pseudo-time continuation: explicit forward Euler and
+implicit backward Euler.
 
-PyTorch port of the JAX package's SteadyBackwardEuler, mirroring the
-reference's SteadyBackwardEulerSolver (FVENS src/ode/aodesolver.cpp:136-638):
+PyTorch port of the JAX package's SteadyForwardEuler and
+SteadyBackwardEuler, mirroring the reference's SteadyForwardEulerSolver and
+SteadyBackwardEulerSolver (FVENS src/ode/aodesolver.cpp:136-638):
 
   - residual norm = sqrt( sum_cells r_energy^2 * area )  (:516-527)
   - convergence on resi/initres with initres from the first step, or on an
     absolute residual (PseudoTimeConfig.tol_abs)
   - exponential residual-based CFL ramp
     CFL_{n+1} = clamp(CFL_n * (res_{n-1}/res_n)^p)  (:110-120)
+  - explicit step: u += cfl_init dt/Vol rhs with local time steps (the
+    reference applies cfl_init, not a ramped CFL, aodesolver.cpp:249)
   - implicit step: (Vol/(CFL dt) I + J1) du = rhs, u += omega du with the
     first-order Jacobian J1 (defect-correction quasi-Newton)
   - NaN residual -> NumericalError; non-convergence -> ToleranceError.
@@ -24,7 +28,8 @@ fetch per step. The linear solve takes one of the JAX package's two paths
     launch of the fused bsgs kernel, both in solver/banded_kernels.py;
     otherwise (pallas=False, or CPU tensors) the plain PyTorch twins of
     solver/banded.py. The bjacobi preconditioner is the plain D^-1 v
-    contraction on both;
+    contraction on both. The kernels take 4x4 blocks only: a banded V = 1
+    system (DiffusionFV) on the card raises NotImplementedError;
   - the gather path everywhere else (the JAX package's default): the slot
     matvec and make_preconditioner (none, bjacobi, bsgs, bcsgs) of
     solver/linear.py, plain PyTorch.
@@ -184,8 +189,60 @@ def controller_advance(cfg, lin, xp, cfl, cfl_cap, rtol, rtol_floor,
 
 
 @dataclasses.dataclass
+class SteadyForwardEuler:
+    """Explicit local-time-stepping pseudo-time solver. Each step reads its
+    residual norm back to the host once, as the JAX package does."""
+    space: object                   # FlowFV or DiffusionFV
+    cfg: PseudoTimeConfig
+
+    def _step(self, mesh, u):
+        rhs, dt = self.space.compute_residual(mesh, u, True)
+        # the reference applies cfl_init (not the ramped CFL) in the
+        # explicit update (aodesolver.cpp:249), mirrored for parity
+        unew = u + (self.cfg.cfl_init * dt * mesh.inv_area)[:, None] * rhs
+        return unew, residual_norm(mesh, rhs)
+
+    def solve(self, mesh, u0, log_every: int = 0, logger=None) -> tuple:
+        """March from u0 to the configured tolerance; a solve that does not
+        converge in cfg.maxiter steps raises ToleranceError (with .info)."""
+        u = u0
+        info = SolveInfo()
+        t0 = time.perf_counter()
+        res = initres = 1.0
+        step = 0
+        if logger is None and log_every:
+            logger = ConvergenceLogger(print_every=log_every, label="FE")
+        while step < self.cfg.maxiter:
+            u, resj = self._step(mesh, u)
+            res = resj.item()
+            if not np.isfinite(res):
+                raise NumericalError("explicit solve diverged: residual NaN/inf")
+            if step == 0:
+                initres = res
+            step += 1
+            info.history.append((step, res / initres, res, self.cfg.cfl_init,
+                                 0))
+            if logger:
+                logger.log(step, res / initres, res, cfl=self.cfg.cfl_init)
+            if (res / initres <= self.cfg.tol
+                    or (self.cfg.tol_abs and res <= self.cfg.tol_abs)):
+                break
+        info.walltime = time.perf_counter() - t0
+        info.steps = step
+        info.initres = initres
+        info.finalres = res
+        info.converged = (res / initres <= self.cfg.tol
+                          or bool(self.cfg.tol_abs
+                                  and res <= self.cfg.tol_abs))
+        if not info.converged:
+            raise ToleranceError("explicit steady solve did not converge",
+                                 info)
+        return u, info
+
+
+@dataclasses.dataclass
 class SteadyBackwardEuler:
-    space: object                       # fv.residual.FlowFV
+    space: object                       # FlowFV or DiffusionFV
     cfg: PseudoTimeConfig
     lin: LinearSolverConfig = LinearSolverConfig()
     nl: NonlinearUpdateConfig = NonlinearUpdateConfig()
@@ -273,6 +330,11 @@ class SteadyBackwardEuler:
                     make_preconditioner(ops.mesh, ops.jac, lin.pc,
                                         lin.pc_sweeps))
         kernel = self._kernel_on(ops.D)
+        if kernel and ops.D.shape[-1] != 4:
+            raise NotImplementedError(
+                f"not ported yet: the banded kernels with {ops.D.shape[-1]}x"
+                f"{ops.D.shape[-1]} blocks (they take 4x4; ROADMAP queue 1 "
+                "item 11); set LinearSolverConfig.banded=False")
         if kernel:
             mv = make_banded_matvec_kernel(ops.D, ops.Bt, ops.bl.offsets)
         else:
@@ -299,26 +361,28 @@ class SteadyBackwardEuler:
                                   maxiter=self.lin.maxiter, rtol=rtol)
         du = du.to(u.dtype)
 
-        phy = self.space.phy
+        phy = self.space.phy            # None for DiffusionFV
         omega = get_update_scheme(self.nl.scheme)(phy, u, du,
                                                   self.nl.min_factor)
         omega = torch.clamp_max(omega, omega_cap)
 
-        # per-cell positivity line search (beyond the reference, which can
-        # accept negative-pressure states at high CFL and NaN on the next
-        # step): halve the local factor until density and pressure stay
-        # above 1% of their current values; 0 if even 1/32 fails
-        rho0 = u[:, 0]
-        p0 = phy.pressure(u)
+        if phy is not None and u.shape[-1] == 4:
+            # per-cell positivity line search (beyond the reference, which
+            # can accept negative-pressure states at high CFL and NaN on the
+            # next step): halve the local factor until density and pressure
+            # stay above 1% of their current values; 0 if even 1/32 fails
+            rho0 = u[:, 0]
+            p0 = phy.pressure(u)
 
-        def positive(om):
-            ut = u + (omega * om)[:, None] * du
-            return (ut[:, 0] > 0.01 * rho0) & (phy.pressure(ut) > 0.01 * p0)
+            def positive(om):
+                ut = u + (omega * om)[:, None] * du
+                return ((ut[:, 0] > 0.01 * rho0)
+                        & (phy.pressure(ut) > 0.01 * p0))
 
-        scale = torch.zeros_like(omega)
-        for om in (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125):
-            scale = torch.where((scale == 0.0) & positive(om), om, scale)
-        omega = omega * scale
+            scale = torch.zeros_like(omega)
+            for om in (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125):
+                scale = torch.where((scale == 0.0) & positive(om), om, scale)
+            omega = omega * scale
         unew = u + omega[:, None] * du
         # poison the reported norm if ANY residual/state component is
         # non-finite (the energy norm alone can stay finite while momentum

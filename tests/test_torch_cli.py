@@ -20,8 +20,9 @@ output. They must give:
   - VTU, surface and volume arrays to 1e-10.
 
 The port's rerun with the same --checkpoint resumes from it. A missing mesh
-exits 1; unsteady, --devices, --pipeline and explicit stepping are refused;
-the CLI module imports with jax blocked. Also: the perftest breakdown and
+exits 1; --devices and --pipeline are refused; unsteady and explicit
+control files print what the JAX CLI prints; the CLI module imports with
+jax blocked. Also: the perftest breakdown and
 the torch twin of __graft_entry__.entry().
 """
 
@@ -214,22 +215,49 @@ def test_cli_needs_the_card_unless_told(runs, capsys):
 @pytest.mark.parametrize("refusal", ["unsteady", "devices", "pipeline",
                                      "explicit"])
 def test_cli_refuses_unported_paths(runs, refusal):
+    """--devices and --pipeline are refused. Unsteady and explicit control
+    files, refused until their steppers were ported, now run and print
+    what the JAX CLI prints on the same files: the cylinder ctrl made
+    unsteady (TVD-RK2 at physical CFL 0.4 to t = 0.05) and made explicit
+    (forward Euler at CFL 0.8: the starter to its 1e-1, the main solve to
+    half its first residual): the same steps, and the functionals to
+    1e-10 (CL, zero by symmetry, to 1e-12 absolute)."""
     tmp, msh = runs["tmp"], runs["msh"]
-    argv = ["--mesh_file", msh, "--device", "cpu", "--log_every", "0"]
-    if refusal == "unsteady":
-        ctrl = _ctrl(tmp, **{"simulation_type  steady":
-                             "simulation_type  unsteady"})
-        match = "queue 1 item 7"
-    elif refusal == "explicit":
-        ctrl = _ctrl(tmp, **{"pseudotime_stepping_type  implicit":
-                             "pseudotime_stepping_type  explicit"})
-        match = "queue 1 item 7"
-    else:
+    argv = ["--mesh_file", msh, "--log_every", "0"]
+    if refusal in ("devices", "pipeline"):
         ctrl = _ctrl(tmp)
         argv += ["--devices", "2"] if refusal == "devices" else ["--pipeline"]
         match = "queue 1 item 9" if refusal == "devices" else "pipelined"
-    with pytest.raises(NotImplementedError, match=match):
-        _run(cli.main, [ctrl] + argv)
+        with pytest.raises(NotImplementedError, match=match):
+            _run(cli.main, [ctrl] + argv + ["--device", "cpu"])
+        return
+    if refusal == "unsteady":
+        ctrl = _ctrl(tmp, **{"simulation_type  steady":
+                             "simulation_type  unsteady\n\tfinal_time 0.05"
+                             "\n\ttemporal_order 2\n\tphysical_cfl 0.4"})
+    else:
+        ctrl = _ctrl(tmp, **{
+            "pseudotime_stepping_type  implicit":
+            "pseudotime_stepping_type  explicit",
+            "cfl_min        500": "cfl_min        0.8",
+            "cfl_min        50\n": "cfl_min        0.8\n",
+            f"tolerance      {MAIN_TOL}": "tolerance      5e-1",
+            "max_timesteps  200": "max_timesteps  20000"})
+    out = {}
+    for name, main, dev in (("jax", jax_cli.main, ["--platform", "cpu"]),
+                            ("port", cli.main, ["--device", "cpu"])):
+        rc, text = _run(main, [ctrl] + argv + dev)
+        assert rc == 0, text
+        out[name] = dict(parse_cli_output(text), text=text)
+    j, t = out["jax"], out["port"]
+    assert t["main_steps"] == j["main_steps"] > 1
+    assert t["main_iters"] == j["main_iters"] == 0
+    if refusal == "unsteady":
+        line = re.compile(r"unsteady TVDRK2 to t=0.05 in (\d+) steps")
+        assert line.search(t["text"]).group(1) \
+            == line.search(j["text"]).group(1) == str(j["main_steps"])
+    for k in FUNCTIONALS:
+        assert abs(t[k] - j[k]) <= max(1e-10 * abs(j[k]), 1e-12), k
 
 
 def test_cli_and_new_modules_import_without_jax():
@@ -242,6 +270,8 @@ def test_cli_and_new_modules_import_without_jax():
         "import fvens_tpu_torch.io_config.checkpoint\n"
         "import fvens_tpu_torch.io_config.solverc\n"
         "import fvens_tpu_torch.mesh.ordering, fvens_tpu_torch.output\n"
+        "import fvens_tpu_torch.cases.model_problems\n"
+        "import fvens_tpu_torch.fv.diffusion, fvens_tpu_torch.solver.unsteady\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m.split('.')[0] in ('fvens_tpu', 'jax'))]\n"
         "assert not bad, bad\n"

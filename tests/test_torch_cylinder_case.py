@@ -11,7 +11,10 @@ path is forced by lowering _BLOCKED_N_THRESHOLD, as it runs by itself at the
   - full f64: the starter and the first 5 main steps with equal Krylov
     iterations and residuals to 1e-9 relative;
   - the case as configured (f32 Jacobian/Krylov): convergence in the JAX
-    record's main steps and Krylov iterations, the entropy error to 1e-8.
+    record's main steps and Krylov iterations, the entropy error to 1e-8;
+  - an explicit starter or main phase (forward Euler) on
+    cylinder_omesh(16, 8): residuals step for step to 1e-9 and the state
+    to 1e-9.
 """
 
 import dataclasses
@@ -201,20 +204,62 @@ def test_run_output_reports_the_entropy_error(blocked_everywhere):
 
 
 @pytest.mark.parametrize("change", [
-    dict(init=dict(stepping="explicit")),
-    dict(main=dict(stepping="explicit")),
-    # what a .solverc's -pc_type gamg maps to
+    # an explicit starter (forward Euler at CFL 0.8 to 1e-1), then the
+    # implicit main solve cut to 3 steps
+    dict(init=dict(stepping="explicit", cfl_init=0.8, cfl_fin=0.8,
+                   maxiter=2000),
+         main=dict(tol_abs=0.0, tol=1e-16, maxiter=3)),
+    # the implicit starter, then an explicit main solve to 1e-2
+    dict(main=dict(stepping="explicit", cfl_init=0.8, cfl_fin=0.8,
+                   tol_abs=0.0, tol=1e-2, maxiter=5000)),
+    # what a .solverc's -pc_type gamg maps to: still refused
     dict(linear=dict(pc="amg")),
 ])
 def test_unported_case_options_refused(change):
+    """Explicit pseudo-time phases of SteadyFlowCase (refused before they
+    were ported) held to the JAX package's on cylinder_omesh(16, 8) in f64:
+    the starter's steps, the main solve's steps and residual to 1e-9 and
+    the state to 1e-9 of its largest entry (the explicit main solve takes
+    hundreds of steps). pc='amg' is still refused."""
     cfg = bigmesh_case.case_config()
     for key, value in change.items():
         if isinstance(value, dict):
             value = dataclasses.replace(getattr(cfg, key), **value)
         cfg = dataclasses.replace(cfg, **{key: value})
     _, cm, u0 = bigmesh_case.build_case("cpu", 16, 8)
-    with pytest.raises(NotImplementedError):
-        SteadyFlowCase(cfg).run_output(cm, u0)
+    if cfg.linear.pc == "amg":
+        with pytest.raises(NotImplementedError):
+            SteadyFlowCase(cfg).run_output(cm, u0)
+        return
+    cfg = _f64_config(cfg, cfg.main.maxiter)
+    case = SteadyFlowCase(cfg)
+    if cfg.main.stepping == "explicit":
+        u, info = case.solve(cm, u0)
+    else:
+        with pytest.raises(ToleranceError) as e:
+            case.solve(cm, u0)
+        u, info = None, e.value.info
+    from fvens_tpu.cases.casesolvers import initial_state as jinit
+    from fvens_tpu.mesh import compile_mesh
+    from fvens_tpu.mesh.meshgen import cylinder_omesh
+    jcfg = to_jax_config(cfg)
+    jm = compile_mesh(cylinder_omesh(16, 8, stretch=1.15 ** 2.5), jcfg.bcs,
+                      dtype=jnp.float64)
+    jcase = JaxCase(jcfg)
+    log = _History()
+    ju0 = jinit(jax_build_space(jcfg), jm)
+    if u is None:
+        with pytest.raises(JaxToleranceError):
+            jcase.solve(jm, ju0, logger=log)
+    else:
+        ju, jinfo = jcase.solve(jm, ju0, logger=log)
+        assert info.steps == jinfo.steps and info.converged
+        want = np.asarray(ju)
+        assert np.abs(u.numpy() - want).max() <= 1e-9 * np.abs(want).max()
+    assert case.starter_info.steps > 1 and case.starter_info.converged
+    assert [h[0] for h in info.history] == [r[0] for r in log.rows]
+    for (step, res, cfl, iters), h in zip(log.rows, info.history):
+        assert h[4] == iters and abs(h[2] - res) <= 1e-9 * res, (step, res)
 
 
 def test_jax_bigmesh_record_is_the_bigmesh_case():
