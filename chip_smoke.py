@@ -38,7 +38,8 @@ In order:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds csrc/banded_apply.cu, csrc/banded_bsgs.cu and csrc/row_set.cu
      from the checkout, one nvcc each, all at once, and prints ptxas's
-     registers and spills;
+     registers, stack frame and spills for each kernel instantiation (one
+     "ptxas" JSON line per library);
   3. holds each kernel against its plain PyTorch twin: banded_apply on the
      real step-0 operators of both paths (matvec K=7, D^-1 v K=1, bsgs sweep
      K=6) and the fused bsgs apply on the same operators, at f32 (max abs
@@ -52,7 +53,12 @@ In order:
      (CUDA events, median of TIMED_RUNS), its device time (device_ms: calls
      queued back to back behind a device-side sleep), the twin, the fused
      apply's sequence, and the matvec as one torch.sparse_bsr_tensor product
-     (library_ms; never on the path), and computes each kernel's bound;
+     (library_ms; never on the path), and computes each kernel's bound; the
+     fused apply also phase by phase (profile_step.bsgs_phase_times: D^-1 v
+     with the first sweep, and a later sweep, beside the sequence's, with
+     the solver's plan and with other shared memory), and the fixed cost of
+     one of its phases where the data is negligible
+     (profile_step.bsgs_phase_cost);
   4. runs the 640x320 cylinder solve (a warm-up solve, then the timed one):
      gmres must run blocked (n >= linear._BLOCKED_N_THRESHOLD), the main
      solve must converge to 1e-10 with a finite state, row_set must launch
@@ -411,9 +417,37 @@ def build_kernels():
     for name, build in builds.items():
         print(f"  {name}: nvcc {build.seconds:.2f} s -> "
               f"{os.path.relpath(build.path)}", flush=True)
-        for line in build.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip(), flush=True)
+        print("ptxas", json.dumps(dict(library=name,
+                                       kernels=ptxas_summary(build.log))),
+              flush=True)
+
+
+def ptxas_summary(log: str) -> list:
+    """Per kernel in nvcc's -Xptxas -v output: its name (the fused bsgs
+    kernel's as dtype and K bands), its registers, stack frame and spill
+    bytes."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"bsgs_kernelI([fd])Li(\d+)E", name)
+            if t:
+                dtype = "f32" if t.group(1) == "f" else "f64"
+                name = f"{dtype} K={t.group(2)}"
+            cur = dict(kernel=name)
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def bsr_library_matvec(D, Bt, offsets):
@@ -455,7 +489,8 @@ def banded_checks(dev, path: str, make):
     returns (solver, mesh). Returns (banded_apply rows, bsgs rows)."""
     import torch
     from fvens_tpu_torch.cases.casesolvers import initial_state
-    from fvens_tpu_torch.cases.profile_step import device_ms
+    from fvens_tpu_torch.cases.profile_step import (bsgs_phase_times,
+                                                    device_ms)
     from fvens_tpu_torch.solver import banded as tb
     from fvens_tpu_torch.solver import banded_kernels as bk
 
@@ -548,6 +583,13 @@ def banded_checks(dev, path: str, make):
             dname)
         row["bound_all_cells_ms"], _ = bound(
             ((1 + len(dms_n)) * 16 + 2 * 4) * cm.NC * it, 0, dname)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["sequence_bound_share"] = (row["bound_ms"]
+                                       / row["sequence_device_ms"])
+        row["fused_over_sequence"] = (row["device_ms"]
+                                      / row["sequence_device_ms"])
+        row["phases"] = bsgs_phase_times(bands1, bandsn, dms_n,
+                                         ops.bl.support, sweeps, x)
         frows.append(row)
         print("banded_bsgs check", json.dumps(row), flush=True)
     return rows, frows
@@ -1754,6 +1796,10 @@ def main() -> int:
                                lambda mixed: bench_solver(dev, mixed=mixed))
         brows, frows = brows + b2, frows + f2
         rrows = rowset_checks(dev)
+        from fvens_tpu_torch.cases.profile_step import bsgs_phase_cost
+        phase_cost = {str(dt)[6:]: bsgs_phase_cost(dev, dt)
+                      for dt in (torch.float32, torch.float64)}
+        print("banded_bsgs phase cost", json.dumps(phase_cost), flush=True)
     paths = {}
     with phase("cylinder 640x320 solve (warm-up + timed)"):
         _, paths["cylinder 640x320 banded"] = cylinder_path(dev)
@@ -1829,6 +1875,14 @@ def main() -> int:
             library_ms=None, **{k: pc[k] for k in keys},
             sequence_ms=pc["sequence_ms"],
             sequence_device_ms=pc["sequence_device_ms"], n_res=pc["n_res"],
+            bound_share=pc["bound_share"],
+            fused_over_sequence=pc["fused_over_sequence"],
+            phases=pc["phases"],
+            other_applies=[{k: r[k] for k in (
+                "path", "NC", "dtype", "device_ms", "sequence_device_ms",
+                "bound_ms", "bound_share", "fused_over_sequence")}
+                for r in frows if r is not pc],
+            phase_cost=phase_cost,
             shape=f"f32 bsgs apply, K={pc['K']}, {pc['sweeps']} sweeps, "
                   f"NC={pc['NC']}",
             library="no single PyTorch call computes the sweeps"),

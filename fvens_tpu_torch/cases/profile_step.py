@@ -1,7 +1,7 @@
 """Where one implicit step of a solve spends its time.
 
     python -m fvens_tpu_torch.cases.profile_step \
-        [--case bench|cylinder|cylinder-gather|rowset|slot-gather]
+        [--case bench|cylinder|cylinder-gather|rowset|slot-gather|kernels]
         [--pc bsgs|bcsgs] [--device cuda|cpu]
 
 `bench` (the default) is the bench solve of cases/bench_case.py on its
@@ -11,7 +11,9 @@ cases/bigmesh_case.py on its 640x320 mesh, after the first-order starter;
 `--pc bcsgs` GATHER_BCSGS), whose matvec and preconditioner are plain
 PyTorch, so it runs once. `rowset` times the row_set kernel alone
 (rowset_profile); `slot-gather` the gather path's slot gather alone, on
-the card or (`--device cpu`) on the CPU (slot_gather_profile). The others
+the card or (`--device cpu`) on the CPU (slot_gather_profile). `kernels`
+times the three kernels on their main-path operators, in two rounds
+(kernel_times). The others
 run WARM_STEPS steps, once through the CUDA
 kernels and once through the plain banded twins (pallas=False; blocked
 GMRES's basis appends stay the row_set kernel, which, as in the JAX
@@ -33,11 +35,13 @@ package, no option turns off), then at that state:
      seven-launch banded_apply sequence and the plain twin; each by the
      host clock per call, and the kernels by their device time per apply
      (device_ms: applies queued back to back behind a device-side sleep,
-     between CUDA events); the fused kernel (with its own plan, and with no
-     cell resident) and the sequence sweep by sweep (device time at one
-     sweep and at the solver's count: the first sweep with D^-1 v, and a
-     later sweep as the difference over the rest); and the whole step with
-     the fused apply and with the sequence, in turns;
+     between CUDA events); the fused kernel (the solver's plan, and others
+     of its shared memory: BSGS_VARIANTS) and the
+     sequence sweep by sweep (device time at one sweep and at the solver's
+     count: the first sweep with D^-1 v, and a later sweep as the
+     difference over the rest), and the fixed cost of a phase
+     (bsgs_phase_cost); and the whole step with the fused apply and with
+     the sequence, in turns;
   2. traces one step with torch.profiler and prints the device time by
      kernel and the device's busy time (the sum over device events, so
      the operators that launched them are not counted twice) against the
@@ -185,35 +189,81 @@ def _pc_variants(dev, solver, ops, v):
                 rec.setdefault(    # device queue holds behind a sleep
                     f"pc_{name}_device_ms", []).append(device_ms(lambda: pc(v)))
     rec["pc_sweeps"] = _pc_sweep_times(solver, ops, v)
+    rec["pc_phase_cost"] = bsgs_phase_cost(dev)
     return rec
 
 
 def _pc_sweep_times(solver, ops, v):
-    """Device ms of the fused kernel with its own plan ("fused") and with
-    no cell resident ("fused_none_resident"), and of the sequence, at one
-    sweep and at the solver's S: the first sweep with D^-1 v, and a later
-    sweep, (t_S - t_1) / (S - 1). Each fused result is held equal to the
-    sequence's."""
-    S = solver.lin.pc_sweeps
+    """bsgs_phase_times on the step's operators at the solver's sweeps."""
     (dinv, _), (dn, dms) = bk.bsgs_bands(ops.Dinv, ops.DNbt, ops.bl.offsets)
+    return bsgs_phase_times(dinv, dn, dms, ops.bl.support,
+                            solver.lin.pc_sweeps, v)
+
+
+# the fused kernel with the solver's plan, and with other shared memory per
+# block: by name, the BsgsApply keywords as a function of the card's
+# bsgs_device_limits
+BSGS_VARIANTS = {
+    "fused": lambda lim: {},
+    "no_l1_room": lambda lim: dict(smem_bytes=lim["smem_optin"]),
+    "shared_tier": lambda lim: dict(smem_bytes=lim["smem_per_block"]),
+    "none_resident": lambda lim: dict(smem_bytes=0),
+}
+
+
+def bsgs_phase_times(dinv, dn, dms, support, S: int, v,
+                     variants=tuple(BSGS_VARIANTS)) -> dict:
+    """Device ms of the fused kernel in each of `variants` (BSGS_VARIANTS)
+    and of the seven-launch sequence, at one sweep and at S: the first
+    sweep with D^-1 v (first_ms), the whole apply (total_ms) and a later
+    sweep, (t_S - t_1) / (S - 1). Each fused result is held equal to the
+    sequence's. The variants run in turns, then again in reverse order;
+    each number is the lower of the two rounds."""
     seq = {s: bk.bsgs_sequence(dinv, dn, dms, s) for s in (1, S)}
+    lim = bk.bsgs_device_limits(v.device)
+    apps = {name: {s: bk.BsgsApply(dinv, dn, dms, s, support,
+                                   **BSGS_VARIANTS[name](lim))
+                   for s in (1, S)}
+            for name in variants}
+    apps["sequence"] = seq
     rec = {}
-    for name, kw in (("fused", {}), ("fused_none_resident",
-                                     dict(smem_bytes=0)), ("sequence", None)):
-        t = {}
-        for s in (1, S):
-            if kw is None:
-                app = seq[s]
-            else:
-                app = bk.BsgsApply(dinv, dn, dms, s, ops.bl.support, **kw)
-                if not torch.equal(app(v), seq[s](v)):
+    for order in (list(apps), list(apps)[::-1]):
+        for name in order:
+            t = {}
+            for s in (1, S):
+                app = apps[name][s]
+                if name != "sequence" and not torch.equal(app(v), seq[s](v)):
                     raise RuntimeError(f"{name} differs from the sequence")
-            t[s] = device_ms(lambda: app(v))
-        rec[name] = dict(first_ms=t[1], total_ms=t[S],
-                         later_sweep_ms=(t[S] - t[1]) / max(S - 1, 1))
-        if kw is not None:
-            rec[name]["n_res"] = app.plan.n_res
-            rec[name]["chunk"] = app.plan.chunk
+                t[s] = device_ms(lambda: app(v))
+            r = dict(first_ms=t[1], total_ms=t[S],
+                     later_sweep_ms=(t[S] - t[1]) / max(S - 1, 1))
+            old = rec.get(name)
+            rec[name] = r if old is None else {
+                k: min(old[k], r[k]) for k in r}
+    for name in variants:
+        p = apps[name][S].plan
+        rec[name].update(n_res=p.n_res, chunk=p.chunk)
+    return rec
+
+
+def bsgs_phase_cost(dev, dtype=torch.float32, S: int = 6) -> dict:
+    """The fixed cost of a phase of the fused kernel, where its data is
+    negligible: one 16-byte run of cells per block on every SM (528 cells
+    at f32), six full bands; device ms per phase, (t_S - t_0) / S, and
+    the sequence's per launch."""
+    sms = bk.bsgs_device_limits(dev)["n_blocks"]
+    NC = sms * bk.bsgs_align(dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+    dinv = torch.randn(1, 4, 4, NC, device=dev, dtype=dtype, generator=g)
+    dn = torch.randn(6, 4, 4, NC, device=dev, dtype=dtype, generator=g) / 48
+    dms = (-1, 1, -17, 17, 101, -101)
+    v = torch.randn(NC, 4, device=dev, dtype=dtype, generator=g)
+    t = {s: device_ms(lambda a=bk.BsgsApply(dinv, dn, dms, s): a(v))
+         for s in (0, S)}
+    rec = dict(NC=NC, blocks=sms, phase_ms=(t[S] - t[0]) / S,
+               apply_ms=t[S])
+    rec["sequence_launch_ms"] = device_ms(
+        lambda: bk.bsgs_sequence(dinv, dn, dms, S)(v)) / (S + 1)
     return rec
 
 
@@ -437,12 +487,71 @@ def _event_ms(fn, runs=50):
     return ts[len(ts) // 2]
 
 
+def _step0_operators(dev, case: str, mixed: bool):
+    """(solver, mesh, banded operators at the free stream) of the 640x320
+    cylinder's main solve ("cylinder") or the bench solve ("bench"),
+    mixed precision (f32 operators) or not (f64)."""
+    import dataclasses
+
+    from .casesolvers import SteadyFlowCase
+    if case == "cylinder":
+        c, cm, _ = bigmesh_case.build_case(dev, *bigmesh_case.BIGMESH)
+        cfg = c.cfg
+        if not mixed:
+            cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+                cfg.linear, mixed_precision=False))
+        solver = SteadyFlowCase(cfg)._make_solver(build_space(cfg), cfg.main)
+    else:
+        solver, cm = bench_solver(dev, mixed=mixed)
+    _, _, ops = solver.step_operators(cm, initial_state(solver.space, cm),
+                                      solver.cfg.cfl_init)
+    return solver, cm, ops
+
+
+def kernel_times(dev):
+    """Device ms (device_ms) of K1 (the K=7 matvec), K1b (the fused bsgs
+    apply, and the seven-launch sequence of K1) on the step-0 operators of
+    the 640x320 cylinder (f32 and f64) and of the bench mesh (f32), and of
+    K2 (row 37 of a (96, 819,200) f32 basis), in two rounds. Every fused
+    apply is held equal to the sequence. Prints one "kernels" JSON line
+    per operator set."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    for case, mixed in (("cylinder", True), ("cylinder", False),
+                        ("bench", True)):
+        solver, cm, ops = _step0_operators(dev, case, mixed)
+        S = solver.lin.pc_sweeps
+        x = torch.randn(cm.NC, 4, device=dev, dtype=ops.D.dtype,
+                        generator=g)
+        bands7, d7 = bk.matvec_bands(ops.D, ops.Bt, ops.bl.offsets)
+        (dinv, _), (dn, dms) = bk.bsgs_bands(ops.Dinv, ops.DNbt,
+                                             ops.bl.offsets)
+        mv = bk.BandedApply(bands7, d7)
+        pc = bk.BsgsApply(dinv, dn, dms, S, ops.bl.support)
+        seq = bk.bsgs_sequence(dinv, dn, dms, S)
+        if not torch.equal(pc(x), seq(x)):
+            raise RuntimeError("the fused apply differs from the sequence")
+        fns = dict(matvec=lambda: mv(x), bsgs=lambda: pc(x),
+                   sequence=lambda: seq(x))
+        rec = dict(case=case, NC=cm.NC, dtype=str(ops.D.dtype)[6:],
+                   sweeps=S, card=torch.cuda.get_device_name(dev))
+        for _ in range(2):
+            for kname, fn in fns.items():
+                rec.setdefault(f"{kname} ms", []).append(device_ms(fn))
+        print("kernels", json.dumps(rec), flush=True)
+    V = torch.randn(96, 819_200, device=dev, generator=g)
+    w = torch.randn(819_200, device=dev, generator=g)
+    hn = linear._norm2(w)
+    rec = dict(case="row_set", n=819_200, dtype="float32",
+               row_set_ms=[device_ms(lambda: rk.row_set(V, 37, w, hn), n=200)
+                           for _ in range(2)])
+    print("kernels", json.dumps(rec), flush=True)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=sorted(MESHES) + ["rowset",
-                                                         "slot-gather"],
-                    default="bench")
+    ap.add_argument("--case", choices=sorted(MESHES) + [
+        "rowset", "slot-gather", "kernels"], default="bench")
     ap.add_argument("--pc", choices=sorted(GATHER), default="bsgs",
                     help="the preconditioner of --case cylinder-gather")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -456,6 +565,9 @@ def main():
     if args.case == "rowset":
         rk.load_library()
         rowset_profile(dev)
+        return
+    if args.case == "kernels":
+        kernel_times(dev)
         return
     gather = args.case == "cylinder-gather"
     for pallas in (True,) if gather else (True, False):

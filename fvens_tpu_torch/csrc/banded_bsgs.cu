@@ -12,70 +12,122 @@
 // so the result equals that of the seven-launch sequence value for value (the
 // zero products it skips could change the sign of a zero result, no more).
 //
-// What bounds it: bytes. Each input read once and the output written once
-// (D^-1, D^-1 N, v, z) is 98.3 MB at f32 for the 640x320 cylinder's 204,800
-// cells and six bands, 29.3 us at 3.35 TB/s; counting each band only over
-// its support (the two O-mesh seam bands hold one ring of 320 cells each),
-// what this operator needs is 72.1 MB, 21.5 us. The sequence instead
-// streams all 78.6 MB of D^-1 N from device memory in each of the six
-// sweeps (550 MB per apply), because the bands are larger than the 50 MB L2.
+// What bounds it. By bytes: each input read once and the output written
+// once, over each band's support (the two O-mesh seam bands hold one ring of
+// 320 cells each), is 72.1 MB at f32 for the 640x320 cylinder's 204,800
+// cells and six bands, 21.5 us at 3.35 TB/s; the arithmetic (a 4x4 block
+// product per band and cell, 20 MFLOP a sweep) is far below the card's
+// rate. In practice two things hold it above that, measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md):
+//   - the D^-1 N that does not fit on chip (45% of the cells' dense bands
+//     at f32) comes back from L2 in every sweep, and every sweep gathers
+//     six z rows per cell from L2: a later sweep takes about 9 us;
+//   - the phases are chained through memory: a phase cannot start before
+//     its neighbours' previous phase is visible, which costs 3.2-3.8 us per
+//     phase even where the data is negligible (528 cells), with the flags
+//     below as with grid barriers (3.15 us).
 //
 // What the design does about it:
 //   - a cooperative grid of one block of 1,024 threads per SM; block b owns
-//     the cells [b * chunk, (b + 1) * chunk) for the whole apply, and a grid
-//     barrier separates the phases (D^-1 v, then each sweep), which read the
-//     previous phase's z of neighbouring cells;
-//   - band k is skipped at cells outside its support [lo_k, hi_k), where its
-//     blocks are zero (BandedStructure.support), so the seam bands cost one
-//     ring of cells, and only the bands whose support spans most cells (the
-//     "dense" ones) are kept in shared memory;
-//   - the first sweep streams the block's slice of D^-1 N from device memory
-//     and keeps the dense bands of its first n_res cells in dynamic shared
-//     memory, in the cell-minor layout of the bands ((n_dense*16) planes of
-//     n_res values, so consecutive threads hit consecutive banks); sweeps
-//     2..S read those from shared memory and the rest from device memory.
-//     At 640x320 f32 that is 854 of each block's 1,552 cells, and the rest
-//     (23.6 MB) is small enough to stay in L2 from one sweep to the next;
-//   - D^-1 v of the resident cells, the base of every sweep, stays in shared
-//     memory too; the other cells read it back from the dv buffer;
-//   - z is read with plain loads, which the L1 may cache within a phase (the
-//     grid barrier orders the previous phase's writes before them); the band
-//     count is a template argument, so the band loop unrolls and a cell's
-//     loads of all its bands can be in flight together;
-//   - the rest of the bands is read with plain loads: an L2 access-policy
-//     window marking D^-1 N persisting was measured slower on the
-//     cylinder's f32 operator (PERF.md) and is not used.
+//     the cells [b * chunk, (b + 1) * chunk) for the whole apply. Band k is
+//     skipped at cells outside its support [lo_k, hi_k), where its blocks
+//     are zero (BandedStructure.support), so the seam bands cost one ring of
+//     cells; only the "dense" bands, whose support spans most cells, are
+//     kept on chip;
+//   - where the dense bands do not fit in half of L2 (at 640x320; at the
+//     12,800-cell bench mesh they do, stay in L2 from sweep to sweep by
+//     themselves, and a shared tier costs more than it saves: the plan
+//     keeps none there), the first n_res cells of a block keep their dense
+//     bands in shared memory, in the cell-minor layout of the bands ((n_dense * 16) planes
+//     of n_res values, so consecutive threads hit consecutive banks), and
+//     D^-1 v, the base of every sweep, beside them; the other cells read
+//     theirs from device memory (L2 after the first sweep) and the dv
+//     buffer. The plan leaves 32 KB of the SM's 256 KB of shared memory
+//     and L1 to L1, where the sweeps' z gathers hit (BSGS_L1_BYTES): at
+//     640x320 f32 732 of each block's 1,552 cells are resident;
+//   - the shared tier arrives by TMA: at entry one thread issues each dense
+//     plane of those cells (a contiguous run of n_res values, 16-byte
+//     aligned: the plan rounds blocks and the tier to 16 bytes and BsgsApply
+//     pads the plane stride ld) as one `cp.async.bulk` copy, completing on
+//     an mbarrier. So the bands stream in while D^-1 v is computed and
+//     while the block waits for its neighbours, and a thread waits for them
+//     only when it reaches its first shared-tier cell. (Copying the same
+//     planes with the threads' own loads before D^-1 v cost about 23 us
+//     more an apply.);
+//   - per-block flags in place of grid barriers: a sweep of block b reads
+//     the previous phase's z at the cells (c + d_k) mod NC, owned by the
+//     blocks deps(b) (the launch plan's), and overwrites the buffer that the
+//     phase before that wrote. Before phase p, block b waits until every
+//     block of waits(b) = deps(b) + {b' : b in deps(b')} has finished phase
+//     p - 1: deps gives read-after-write; the reverse set gives
+//     write-after-read, since no block can then be two phases ahead of a
+//     block that reads its cells. On the 640x320 O-mesh waits(b) is the two
+//     neighbouring blocks (the seam bands join the first and the last).
+//     The flags count phases and are never reset: each apply raises every
+//     block's flag by `sweeps`, so between applies all flags hold one value
+//     F, which each block reads from its own flag at entry; block b then
+//     publishes F + s when it has finished phase s - 1 and waits for F + s
+//     in the blocks of waits(b). The count lives on the card, so an apply
+//     captured in a CUDA graph stays right at every replay; the applies of
+//     one operator must be ordered by one stream.
+//     Memory ordering: the block's threads write their z; __syncthreads()
+//     orders those writes before thread 0's st.release.gpu of the flag
+//     (release is cumulative: it publishes what thread 0 has observed, the
+//     whole block's writes through the barrier); a waiting block has one
+//     thread per block of waits(b) read that flag with ld.acquire.gpu until
+//     it is reached, then __syncthreads() orders each acquire before every
+//     thread's loads of the neighbours' z (the pattern of cooperative
+//     groups' grid barrier, for a few blocks instead of all). The launch
+//     stays cooperative, so every block is resident and the spinning cannot
+//     deadlock. (With grid barriers in place of the flags an apply took
+//     2.4 us more at 640x320.);
+//   - z rows and the base are read, and rows written, as one 16-byte vector
+//     (two at f64): the buffers are the kernel's own and aligned. (The
+//     input v, which may be any row of the caller's, is read by scalars.);
+//   - the band count K is a template argument, so the band loop unrolls and
+//     a cell's loads of all its bands can be in flight together.
 // Buffers: phase 0 writes dv; sweep s reads the previous z (dv for s = 1)
 // and writes `out` when S - s is even, else the scratch z, so the last sweep
 // lands in `out`; with no sweeps, phase 0 writes `out`.
 //
+// Tried on the card and left out (PERF.md): a register tier (512
+// threads of 128 registers, each holding one cell's four dense bands, so
+// 1,364 of 1,552 cells on chip) was as fast or slower, its first phase
+// slower; an L2 prefetch of the rest tier's bands at entry was slower at
+// f64 and no faster at f32; updating each sweep's cells whose neighbours
+// lie in their own block before waiting for the other blocks, and walking
+// a thread's cells from the last, were slower.
+//
 // A grid that does not fit on the card at once is refused by the runtime
-// (cudaErrorCooperativeLaunchTooLarge) and the error is returned: there is
-// no fallback to the per-sweep launches.
+// (cudaErrorCooperativeLaunchTooLarge), as is shared memory beyond the
+// card's, and the error is returned: there is no fallback.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "banded_block.cuh"
 
-namespace cg = cooperative_groups;
-
 // Mirrors the ctypes Structure `BsgsArgs` in solver/banded_kernels.py.
 struct BsgsArgs {
   const void* dinv;    // (1, 4, 4, nc) D^-1, cells minor
-  const void* dn;      // (K, 4, 4, nc) D^-1 N, cells minor
+  const void* dn;      // (K, 4, 4, ld) D^-1 N, cells minor, plane stride ld
   void* dv;            // (nc, 4) scratch: D^-1 v
   void* z;             // (nc, 4) scratch: every other sweep's z
+  unsigned long long* flags;  // (blocks,) the phases each block finished,
+                              // zeros before the operator's first apply
+  const int* waits;    // waits[b]..waits[b+1]: where block b's list lies in
+                       // this same array (blocks + 1 offsets, then lists)
   int device;
   int nc;
+  int ld;              // plane stride of dn, >= nc
   int nbands;
   int sweeps;
   int blocks;          // grid size; blocks * chunk >= nc
   int chunk;           // cells per block
-  int n_res;           // cells per block whose bands stay in shared memory
+  int n_res;           // first cells of a block: dense bands in shared
+                       // memory
   int smem_bytes;      // dynamic shared memory per block
-  int dense;           // bit k: band k kept in shared memory
+  int dense;           // bit k: band k kept on chip
   int offsets[fvens::kMaxBands];
   int lo[fvens::kMaxBands];   // band k is zero outside cells [lo, hi)
   int hi[fvens::kMaxBands];
@@ -89,7 +141,7 @@ using fvens::Offsets;
 // One block of 1,024 threads per SM (64 registers a thread), so that a
 // block gets all of its SM's shared memory.
 constexpr int kThreads = 1024;
-constexpr int kBlocksPerSM = 1;
+constexpr int kHeader = 16;      // dynamic shared memory before the planes
 constexpr int kMaxDevices = 64;
 
 template <typename T>
@@ -100,41 +152,120 @@ struct Params {
   T* dv;
   T* z;
   T* out;
-  int nc, sweeps, chunk, n_res;
+  unsigned long long* flags;
+  const int* waits;
+  int nc, ld, sweeps, chunk, n_res;
   unsigned dense;
   Offsets off;
   int lo[kMaxBands], hi[kMaxBands];
 };
 
+// ---- memory-ordering and asynchronous-copy primitives (PTX) ----
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- rows of the (nc, 4) vectors as one 16-byte access (two at f64) ----
+
+template <typename T>
+struct LoadRowVector;
+
+template <>
+struct LoadRowVector<float> {
+  __device__ __forceinline__ void row(const float* p, float v[kV]) const {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  }
+};
+
+template <>
+struct LoadRowVector<double> {
+  __device__ __forceinline__ void row(const double* p, double v[kV]) const {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
+};
+
+__device__ __forceinline__ void store_row(float* p, const float y[kV]) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+}
+
+__device__ __forceinline__ void store_row(double* p, const double y[kV]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(y[0], y[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(y[2], y[3]);
+}
+
 // Where a sweep reads the band entries of one cell: from device memory
-// (kGlobal), from device memory keeping the dense bands' entries in shared
-// memory as they pass (kStash: the first sweep of a resident cell), or the
-// dense bands from shared memory and the others from device memory
-// (kShared). Shared memory holds the dense bands only, in band order, as
-// (n_dense * 16) planes of n_res cells. Bands absent at the cell (outside
-// their support) are skipped.
-enum BandSource { kGlobal, kStash, kShared };
+// (kGlobal), or the dense bands from shared memory and the others from
+// device memory (kShared). Shared memory holds the dense bands only, in band
+// order, as (n_dense * 16) planes of n_res cells. Bands absent at the cell
+// (outside their support) are skipped.
+enum BandSource { kGlobal, kShared };
 
 template <typename T, BandSource kSource>
 struct SweepBands {
   const T* g;          // D^-1 N at this cell, plane stride gs
   int64_t gs;
-  T* s;                // shared planes at this cell, plane stride ss
+  const T* s;          // shared planes at this cell, plane stride ss
   int64_t ss;
   unsigned present;    // bit k: the cell lies in band k's support
-  unsigned dense;      // bit k: band k is kept in shared memory
+  unsigned dense;      // bit k: band k is kept on chip
   __device__ __forceinline__ bool has(int k) const {
     return (present >> k) & 1u;
   }
   __device__ __forceinline__ T operator()(int q) const {
     const int k = q / (kV * kV);
-    if (kSource != kGlobal && ((dense >> k) & 1u)) {
-      T* sp = s + (__popc(dense & ((1u << k) - 1u)) * kV * kV +
-                   q % (kV * kV)) * ss;
-      if (kSource == kShared) return *sp;
-      const T v = __ldg(g + q * gs);
-      *sp = v;
-      return v;
+    if (kSource == kShared && ((dense >> k) & 1u)) {
+      return s[(__popc(dense & ((1u << k) - 1u)) * kV * kV + q % (kV * kV)) *
+               ss];
     }
     return __ldg(g + q * gs);
   }
@@ -143,46 +274,83 @@ struct SweepBands {
 // K, the band count, is a template argument so that the band loop unrolls
 // and each cell's loads of all its bands can be in flight together.
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+__global__ void __launch_bounds__(kThreads, 1)
 banded_bsgs_kernel(Params<T> p) {
   using fvens::banded_block_apply;
-  using fvens::LoadPlain;
   using fvens::LoadReadOnly;
   using fvens::Planes;
+  constexpr int kAlign = 16 / sizeof(T);      // cells in 16 bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   const int64_t nr = p.n_res;
+  const int64_t ld = p.ld;
   const int n_dense = __popc(p.dense);
-  T* sband = reinterpret_cast<T*>(smem_raw);        // (n_dense*16, n_res)
-  T* sbase = sband + n_dense * kV * kV * nr;         // (4, n_res)
-  const int c0 = blockIdx.x * p.chunk;
+  T* sband = reinterpret_cast<T*>(smem_raw + kHeader);  // (n_dense*16, nr)
+  T* sbase = sband + n_dense * kV * kV * nr;             // (4, nr)
+  const int blk = blockIdx.x;
+  const int c0 = blk * p.chunk;
   const int len = max(0, min(p.chunk, p.nc - c0));
+  // this block's shared tier [0, n_sh), whole 16-byte runs (the last
+  // block's may reach into the planes' padding, which no cell reads)
+  const int n_sh = min(p.n_res, (len + kAlign - 1) / kAlign * kAlign);
+  const int sweeps = p.sweeps;
+  const bool tma = sweeps > 0 && n_sh > 0;
   const Offsets zero{};
+  // the phases finished before this apply, the same in every block's flag;
+  // read before thread 0 first raises this block's (after a __syncthreads)
+  const unsigned long long done = sweeps > 0 ? p.flags[blk] : 0;
 
+  if (tma && threadIdx.x == 0) {
+    const uint32_t bytes = n_sh * sizeof(T);
+    mbar_init(bar);
+    mbar_expect_tx(bar, n_dense * kV * kV * bytes);
+    const T* src = p.dn + c0;
+    int m = 0;
+    for (int k = 0; k < K; ++k) {
+      if (!((p.dense >> k) & 1u)) continue;
+      for (int e = 0; e < kV * kV; ++e, ++m) {
+        bulk_copy(sband + m * nr, src + (k * kV * kV + e) * ld, bytes, bar);
+      }
+    }
+  }
   // phase 0: D^-1 v (one band at shift 0, no base, sign +1)
-  T* first = p.sweeps == 0 ? p.out : p.dv;
+  T* first = sweeps == 0 ? p.out : p.dv;
   for (int r = threadIdx.x; r < len; r += kThreads) {
     const int c = c0 + r;
     T y[kV];
-    banded_block_apply<T>(Planes<T, LoadReadOnly<T>>{p.dinv + c, p.nc}, p.v,
-                          p.nc, c, 1, zero, nullptr, T(1),
-                          LoadReadOnly<T>(), y);
-    T* o = first + static_cast<int64_t>(c) * kV;
-#pragma unroll
-    for (int i = 0; i < kV; ++i) o[i] = y[i];
-    if (r < p.n_res) {
+    banded_block_apply<T, 1>(Planes<T, LoadReadOnly<T>>{p.dinv + c, p.nc},
+                             p.v, p.nc, c, 1, zero, nullptr, T(1),
+                             LoadReadOnly<T>(), y);
+    store_row(first + static_cast<int64_t>(c) * kV, y);
+    if (r < n_sh) {
 #pragma unroll
       for (int i = 0; i < kV; ++i) sbase[i * nr + r] = y[i];
     }
   }
-  if (p.sweeps == 0) return;
+  if (sweeps == 0) return;
+
+  // the blocks this one waits for before each phase (at most 6K, so each
+  // is one thread's)
+  const int w0 = p.waits[blk];
+  const int n_waits = p.waits[blk + 1] - w0;
+  const unsigned long long* wflag =
+      threadIdx.x < n_waits ? p.flags + p.waits[w0 + threadIdx.x] : nullptr;
 
   // the sweeps (base D^-1 v, sign -1: b + (-1) * acc is b - acc exactly,
   // with or without a multiply-add, as in banded_apply.cu)
-  cg::grid_group grid = cg::this_grid();
+  bool arrived = !tma;
   const T* src = p.dv;
-  for (int s = 1; s <= p.sweeps; ++s) {
-    grid.sync();
-    T* dst = ((p.sweeps - s) % 2 == 0) ? p.out : p.z;
+  for (int s = 1; s <= sweeps; ++s) {
+    // phase s - 1 is done here: publish it, and wait for it in the blocks
+    // of waits(b)
+    __syncthreads();
+    if (threadIdx.x == 0) store_release(p.flags + blk, done + s);
+    if (wflag != nullptr) {
+      while (load_acquire(wflag) < done + s) {
+      }
+    }
+    __syncthreads();
+    T* dst = ((sweeps - s) % 2 == 0) ? p.out : p.z;
     for (int r = threadIdx.x; r < len; r += kThreads) {
       const int c = c0 + r;
       unsigned present = 0;
@@ -191,32 +359,25 @@ banded_bsgs_kernel(Params<T> p) {
         if (c >= p.lo[k] && c < p.hi[k]) present |= 1u << k;
       }
       T b[kV], y[kV];
-      if (r < p.n_res) {
+      if (r < n_sh) {
+        if (!arrived) {              // the TMA copies, once, in sweep 1
+          mbar_wait(bar, 0);
+          arrived = true;
+        }
 #pragma unroll
         for (int i = 0; i < kV; ++i) b[i] = sbase[i * nr + r];
-        if (s == 1) {
-          banded_block_apply<T>(
-              SweepBands<T, kStash>{p.dn + c, p.nc, sband + r, nr, present,
-                                    p.dense},
-              src, p.nc, c, K, p.off, b, T(-1), LoadPlain<T>(), y);
-        } else {
-          banded_block_apply<T>(
-              SweepBands<T, kShared>{p.dn + c, p.nc, sband + r, nr, present,
-                                     p.dense},
-              src, p.nc, c, K, p.off, b, T(-1), LoadPlain<T>(), y);
-        }
-      } else {
-        const T* dvr = p.dv + static_cast<int64_t>(c) * kV;
-#pragma unroll
-        for (int i = 0; i < kV; ++i) b[i] = dvr[i];
-        banded_block_apply<T>(
-            SweepBands<T, kGlobal>{p.dn + c, p.nc, nullptr, 0, present,
+        banded_block_apply<T, K>(
+            SweepBands<T, kShared>{p.dn + c, ld, sband + r, nr, present,
                                    p.dense},
-            src, p.nc, c, K, p.off, b, T(-1), LoadPlain<T>(), y);
+            src, p.nc, c, K, p.off, b, T(-1), LoadRowVector<T>(), y);
+      } else {
+        LoadRowVector<T>().row(p.dv + static_cast<int64_t>(c) * kV, b);
+        banded_block_apply<T, K>(
+            SweepBands<T, kGlobal>{p.dn + c, ld, nullptr, 0, present,
+                                   p.dense},
+            src, p.nc, c, K, p.off, b, T(-1), LoadRowVector<T>(), y);
       }
-      T* o = dst + static_cast<int64_t>(c) * kV;
-#pragma unroll
-      for (int i = 0; i < kV; ++i) o[i] = y[i];
+      store_row(dst + static_cast<int64_t>(c) * kV, y);
     }
     src = dst;
   }
@@ -230,6 +391,7 @@ int fail(cudaError_t err) {
 template <typename T, int K>
 int launch_bands(const BsgsArgs* a, const void* v, void* out,
                  void* stream) {
+  constexpr int kAlign = 16 / sizeof(T);
   const unsigned dense = static_cast<unsigned>(a->dense);
   const int64_t per_cell =
       static_cast<int64_t>(__builtin_popcount(dense) * kV * kV + kV) *
@@ -239,13 +401,23 @@ int launch_bands(const BsgsArgs* a, const void* v, void* out,
     supports_ok = supports_ok && 0 <= a->lo[k] && a->lo[k] <= a->hi[k] &&
                   a->hi[k] <= a->nc;
   }
+  const bool tier_ok =
+      a->n_res >= 0 && a->n_res <= a->chunk &&
+      (a->n_res == 0 ||
+       (kHeader + a->n_res * per_cell <= a->smem_bytes &&
+        a->n_res % kAlign == 0 && a->chunk % kAlign == 0 &&
+        a->ld % kAlign == 0 &&
+        reinterpret_cast<uintptr_t>(a->dn) % 16 == 0));
   if (a->nbands < 1 || a->nbands > kMaxBands || a->nc < 1 || !supports_ok ||
-      (dense >> a->nbands) != 0u ||
-      a->sweeps < 0 || a->blocks < 1 || a->chunk < 1 || a->n_res < 0 ||
-      a->n_res > a->chunk || a->smem_bytes < 0 ||
+      (dense >> a->nbands) != 0u || a->ld < a->nc ||
+      a->sweeps < 0 || a->blocks < 1 || a->chunk < 1 || !tier_ok ||
+      a->smem_bytes < 0 ||
       static_cast<int64_t>(a->blocks) * a->chunk < a->nc ||
-      a->n_res * per_cell > a->smem_bytes || a->device < 0 ||
-      a->device >= kMaxDevices) {
+      (a->sweeps > 0 && (a->flags == nullptr || a->waits == nullptr)) ||
+      reinterpret_cast<uintptr_t>(a->dv) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a->z) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      a->device < 0 || a->device >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int current = -1;
@@ -270,7 +442,10 @@ int launch_bands(const BsgsArgs* a, const void* v, void* out,
   p.dv = static_cast<T*>(a->dv);
   p.z = static_cast<T*>(a->z);
   p.out = static_cast<T*>(out);
+  p.flags = a->flags;
+  p.waits = a->waits;
   p.nc = a->nc;
+  p.ld = a->ld;
   p.sweeps = a->sweeps;
   p.chunk = a->chunk;
   p.n_res = a->n_res;
@@ -330,19 +505,20 @@ int fvens_banded_bsgs_f64(const BsgsArgs* a, const void* v, void* out,
 
 // What the launch plan needs of the card: out[0] SMs, out[1] the dynamic
 // shared memory a block may opt in to, out[2] the shared memory of an SM,
-// out[3] the shared memory the system reserves per block, out[4] the fused
-// kernel's threads per block, out[5] its blocks per SM.
+// out[3] the shared memory the system reserves per block, out[4] the L2
+// cache's bytes, out[5] the kernel's threads per block, out[6] the bytes of
+// dynamic shared memory before the planes.
 int fvens_bsgs_device_limits(int device, int* out) {
-  const cudaDeviceAttr attrs[4] = {
+  const cudaDeviceAttr attrs[5] = {
       cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin,
       cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-      cudaDevAttrReservedSharedMemoryPerBlock};
-  for (int i = 0; i < 4; ++i) {
+      cudaDevAttrReservedSharedMemoryPerBlock, cudaDevAttrL2CacheSize};
+  for (int i = 0; i < 5; ++i) {
     cudaError_t err = cudaDeviceGetAttribute(out + i, attrs[i], device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  out[4] = kThreads;
-  out[5] = kBlocksPerSM;
+  out[5] = kThreads;
+  out[6] = kHeader;
   return 0;
 }
 

@@ -49,6 +49,8 @@ DTYPES = (torch.float32, torch.float64)
 
 _LIBS = {}                 # source name: (ctypes.CDLL, BuildInfo)
 _LIMITS = {}               # device index: the bsgs kernel's device limits
+_WAITS = {}                # (device, NC, chunk, blocks, shifts, support):
+                           # the bsgs kernel's waits and their device table
 
 
 class BsgsArgs(ctypes.Structure):
@@ -56,11 +58,12 @@ class BsgsArgs(ctypes.Structure):
     csrc/banded_bsgs.cu."""
     _fields_ = [("dinv", ctypes.c_void_p), ("dn", ctypes.c_void_p),
                 ("dv", ctypes.c_void_p), ("z", ctypes.c_void_p),
+                ("flags", ctypes.c_void_p), ("waits", ctypes.c_void_p),
                 ("device", ctypes.c_int), ("nc", ctypes.c_int),
-                ("nbands", ctypes.c_int), ("sweeps", ctypes.c_int),
-                ("blocks", ctypes.c_int), ("chunk", ctypes.c_int),
-                ("n_res", ctypes.c_int), ("smem_bytes", ctypes.c_int),
-                ("dense", ctypes.c_int),
+                ("ld", ctypes.c_int), ("nbands", ctypes.c_int),
+                ("sweeps", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("chunk", ctypes.c_int), ("n_res", ctypes.c_int),
+                ("smem_bytes", ctypes.c_int), ("dense", ctypes.c_int),
                 ("offsets", ctypes.c_int * MAX_BANDS),
                 ("lo", ctypes.c_int * MAX_BANDS),
                 ("hi", ctypes.c_int * MAX_BANDS)]
@@ -220,18 +223,40 @@ banded_apply.launches = 0
 @dataclasses.dataclass(frozen=True)
 class BsgsPlan:
     """How the fused kernel splits NC cells: block b owns cells
-    [b * chunk, min((b + 1) * chunk, NC)); the first n_res cells of each
-    block keep their bands and base in smem_bytes of shared memory."""
+    [b * chunk, min((b + 1) * chunk, NC)); the first n_res of them keep
+    their dense bands and base in smem_bytes of shared memory, the rest
+    read them from device memory (L2 after the first sweep)."""
     blocks: int
     chunk: int
     n_res: int
     smem_bytes: int
 
 
+BSGS_HEADER_BYTES = 16     # the kernel's dynamic shared memory before the
+                           # planes (its mbarrier)
+# What the plan leaves of an SM's shared memory and L1 (one 256 KB array on
+# Hopper) to L1, for the sweeps' gathers of z rows: with 32 KB left the card
+# takes its 196 KB shared-memory configuration (60 KB of L1) in place of the
+# 228 KB one (28 KB): the apply at 640x320 took 78.3 us in place of 83.9 at
+# f32, 261.5 in place of 282.2 at f64, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md).
+BSGS_L1_BYTES = 32 * 1024
+
+
 def bsgs_cell_bytes(K: int, dtype) -> int:
     """Shared memory one resident cell takes: the 16 entries of each of the
     K bands kept there, and its 4 entries of D^-1 v."""
-    return (K * V * V + V) * torch.empty((), dtype=dtype).element_size()
+    return (K * V * V + V) * _itemsize(dtype)
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def bsgs_align(dtype) -> int:
+    """Cells in 16 bytes: the TMA copies' granule, to which the plan rounds
+    block starts, the shared tier and the bands' plane stride."""
+    return 16 // _itemsize(dtype)
 
 
 def bsgs_dense_bands(support, NC: int) -> tuple:
@@ -241,42 +266,116 @@ def bsgs_dense_bands(support, NC: int) -> tuple:
     return tuple(2 * (hi - lo) > NC for lo, hi in support)
 
 
+def bsgs_bands_fit_l2(support, dense, dtype, l2_bytes: int) -> bool:
+    """Whether the dense bands, over their supports, fit in half of the
+    card's L2: then they stay in L2 from sweep to sweep by themselves, and
+    the fused kernel keeps none in shared memory (at the 12,800-cell bench
+    mesh bringing them in cost more than it saved; PERF.md)."""
+    cells = sum(hi - lo for (lo, hi), d in zip(support, dense) if d)
+    return 2 * cells * V * V * _itemsize(dtype) <= l2_bytes
+
+
 def bsgs_launch_plan(NC: int, K: int, dtype, smem_bytes: int,
                      n_blocks: int) -> BsgsPlan:
     """The fused kernel's grid for NC cells with K bands kept in shared
     memory: at most n_blocks blocks (one per SM) of equal cell ranges, each
-    keeping as many of its cells resident as smem_bytes of shared memory
-    hold."""
+    a whole number of 16-byte runs, each keeping as many of its cells
+    resident, in whole 16-byte runs, as smem_bytes of shared memory hold
+    after the kernel's header."""
     if NC < 1 or not 0 <= K <= MAX_BANDS or n_blocks < 1 or smem_bytes < 0:
         raise ValueError(f"no plan for NC={NC}, K={K}, n_blocks={n_blocks}, "
                          f"smem_bytes={smem_bytes}")
+    a = bsgs_align(dtype)
     chunk = -(-NC // n_blocks)
+    chunk = -(-chunk // a) * a
     per_cell = bsgs_cell_bytes(K, dtype)
-    n_res = min(chunk, smem_bytes // per_cell)
+    room = max(0, smem_bytes - BSGS_HEADER_BYTES) // per_cell
+    n_res = min(chunk, room) // a * a
     return BsgsPlan(blocks=-(-NC // chunk), chunk=chunk, n_res=n_res,
-                    smem_bytes=n_res * per_cell)
+                    smem_bytes=(BSGS_HEADER_BYTES + n_res * per_cell
+                                if n_res else 0))
+
+
+def bsgs_block_deps(NC: int, chunk: int, blocks: int, dms, support) -> tuple:
+    """deps(b) for each block b: the other blocks that own a cell
+    (c + d_k) mod NC for some cell c of block b inside band k's support,
+    i.e. whose z a sweep of block b reads."""
+    deps = []
+    for b in range(blocks):
+        c0, c1 = b * chunk, min((b + 1) * chunk, NC)
+        owners = set()
+        for d, (lo, hi) in zip(dms, support):
+            a, e = max(c0, lo), min(c1, hi)
+            if a >= e:
+                continue
+            s, n = (a + d) % NC, e - a          # n <= chunk <= NC: one wrap
+            for x, y in ((s, min(s + n, NC)), (0, s + n - NC)):
+                if x < y:
+                    owners.update(range(x // chunk, (y - 1) // chunk + 1))
+        owners.discard(b)
+        deps.append(tuple(sorted(owners)))
+    return tuple(deps)
+
+
+def bsgs_block_waits(deps) -> tuple:
+    """waits(b) = deps(b) + {b' : b in deps(b')}: the blocks whose previous
+    phase block b waits for before each phase. deps orders the z it reads
+    after their writes; the reverse set orders its writes, which overwrite
+    the buffer of two phases back, after every read of them."""
+    waits = [set(d) for d in deps]
+    for b, d in enumerate(deps):
+        for o in d:
+            waits[o].add(b)
+    return tuple(tuple(sorted(w)) for w in waits)
+
+
+def _waits_table(waits) -> list:
+    """waits as the kernel reads it: blocks + 1 offsets into the same list,
+    then each block's waits."""
+    offsets, flat = [], []
+    start = len(waits) + 1
+    for w in waits:
+        offsets.append(start + len(flat))
+        flat.extend(w)
+    return offsets + [start + len(flat)] + flat
+
+
+def _block_waits(device, NC: int, plan: BsgsPlan, dms, support):
+    """(waits, the kernel's table of them on `device`), computed once per
+    mesh and plan: the operator is rebuilt every Newton step, its waits
+    are not."""
+    key = (device, NC, plan.chunk, plan.blocks, dms, support)
+    if key not in _WAITS:
+        waits = bsgs_block_waits(bsgs_block_deps(
+            NC, plan.chunk, plan.blocks, dms, support))
+        _WAITS[key] = (waits, torch.tensor(_waits_table(waits),
+                                           dtype=torch.int32, device=device))
+    return _WAITS[key]
 
 
 def bsgs_device_limits(device) -> dict:
-    """SMs, shared memory per block and per SM, the fused kernel's threads
-    per block and blocks per SM, and the plan's default grid and shared
-    memory per block, read from the card once."""
+    """SMs, shared memory per block and per SM, the L2 cache's size, the
+    fused kernel's threads per block, and the plan's default grid and
+    shared memory per block, read from the card once."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _LIMITS:
         lib = _load("banded_bsgs")
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 7)()
         err = lib.fvens_bsgs_device_limits(idx, ctypes.addressof(out))
         if err != 0:
             _raise_launch("banded_bsgs", lib, "fvens_bsgs_error_string", err)
         lim = dict(zip(("sms", "smem_optin", "smem_per_sm", "smem_reserved",
-                        "threads", "blocks_per_sm"), out))
-        # the plan's defaults: every block slot of every SM, each with its
-        # share of the SM's shared memory
-        lim["n_blocks"] = lim["sms"] * lim["blocks_per_sm"]
+                        "l2_bytes", "threads", "header_bytes"), out))
+        if lim["header_bytes"] != BSGS_HEADER_BYTES:
+            raise RuntimeError("banded_bsgs.cu and banded_kernels.py differ "
+                               f"on the kernel's layout: {lim}")
+        # the plan's defaults: one block on every SM, with the SM's shared
+        # memory less BSGS_L1_BYTES
+        lim["n_blocks"] = lim["sms"]
         lim["smem_per_block"] = min(
             lim["smem_optin"],
-            lim["smem_per_sm"] // lim["blocks_per_sm"] - lim["smem_reserved"])
+            lim["smem_per_sm"] - lim["smem_reserved"] - BSGS_L1_BYTES)
         _LIMITS[idx] = lim
     return _LIMITS[idx]
 
@@ -305,16 +404,21 @@ def _check_bsgs(dinv, dn, dms, sweeps, support):
 
 class BsgsApply:
     """The bsgs apply with D^-1, D^-1 N, shifts and sweeps fixed: operands
-    checked, launch planned and scratch allocated once; a call checks v and
-    makes one launch (on CPU tensors: the twin). The scratch is shared by
-    the calls, which the stream orders.
+    checked, launch planned, block waits looked up and scratch and flags
+    allocated once; a call checks v and makes one launch (on CPU tensors:
+    the twin). The scratch and the flags are shared by the calls, so the
+    calls of one operator must be ordered by one stream (the solver's: the
+    current stream), as they are. The flags count the phases done on the
+    card and are never reset, so a call captured in a CUDA graph stays
+    right at every replay.
 
     support: per band the (lo, hi) cell range outside which its blocks are
     zero (BandedStructure.support; default: all cells); the kernel skips a
     band outside it, and keeps only the bands that span most cells
-    (bsgs_dense_bands) in shared memory. smem_bytes and n_blocks override
-    the card's shared memory per block and grid in the plan (tests force
-    the residency cases with them)."""
+    (bsgs_dense_bands) on chip, and none where they fit in L2
+    (bsgs_bands_fit_l2). smem_bytes and n_blocks override the shared
+    memory per block and the grid in the plan (tests force the residency
+    cases with them)."""
 
     def __init__(self, dinv, dn, dms, sweeps: int, support=None,
                  smem_bytes=None, n_blocks=None):
@@ -325,24 +429,44 @@ class BsgsApply:
         if self.device.type != "cuda":
             return
         self.support = (tuple((0, self.NC) for _ in self.dms)
-                        if support is None else tuple(support))
+                        if support is None else
+                        tuple((int(lo), int(hi)) for lo, hi in support))
         dense = bsgs_dense_bands(self.support, self.NC)
         lim = bsgs_device_limits(self.device)
-        self.plan = bsgs_launch_plan(
-            self.NC, sum(dense), self.dtype,
-            lim["smem_per_block"] if smem_bytes is None else smem_bytes,
+        if smem_bytes is None:
+            smem_bytes = (0 if bsgs_bands_fit_l2(self.support, dense,
+                                                 self.dtype, lim["l2_bytes"])
+                          else lim["smem_per_block"])
+        self.plan = p = bsgs_launch_plan(
+            self.NC, sum(dense), self.dtype, smem_bytes,
             lim["n_blocks"] if n_blocks is None else n_blocks)
+        self.waits, self._waits = _block_waits(self.device, self.NC, p,
+                                               self.dms, self.support)
+        # one thread spins on each
+        assert max(map(len, self.waits)) <= lim["threads"]
+        # the bands' planes 16-byte aligned for the TMA copies: a padded
+        # copy where NC or the tensor's address is not
+        a = bsgs_align(self.dtype)
+        ld = -(-self.NC // a) * a
+        self._dn = dn
+        if ld != self.NC or dn.data_ptr() % 16:
+            self._dn = torch.zeros(dn.shape[:3] + (ld,), dtype=self.dtype,
+                                   device=self.device)
+            self._dn[..., :self.NC] = dn
         lib = _load("banded_bsgs")
         self._fn = (lib.fvens_banded_bsgs_f32 if self.dtype == torch.float32
                     else lib.fvens_banded_bsgs_f64)
         self._scratch = torch.empty((2, self.NC, V), dtype=self.dtype,
                                     device=self.device)
-        p = self.plan
+        self._flags = torch.zeros(p.blocks, dtype=torch.int64,
+                                  device=self.device)
         self._args = BsgsArgs(
-            dinv=dinv.data_ptr(), dn=dn.data_ptr(),
+            dinv=dinv.data_ptr(), dn=self._dn.data_ptr(),
             dv=self._scratch[0].data_ptr(), z=self._scratch[1].data_ptr(),
-            device=self.device.index, nc=self.NC, nbands=len(self.dms),
-            sweeps=sweeps, blocks=p.blocks, chunk=p.chunk, n_res=p.n_res,
+            flags=self._flags.data_ptr(), waits=self._waits.data_ptr(),
+            device=self.device.index, nc=self.NC, ld=ld,
+            nbands=len(self.dms), sweeps=sweeps, blocks=p.blocks,
+            chunk=p.chunk, n_res=p.n_res,
             smem_bytes=p.smem_bytes,
             dense=sum(1 << k for k, d in enumerate(dense) if d),
             offsets=(ctypes.c_int * MAX_BANDS)(*self.dms),

@@ -251,8 +251,10 @@ def test_fused_pc_builder_matches_jax(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_bsgs_launch_plan_covers_every_cell_once(dtype, NC):
     """Every cell in exactly one block's range, no empty block, at most
-    n_blocks blocks; n_res as many cells as the shared memory holds, never
-    more, and never more than a block's range."""
+    n_blocks blocks; n_res as many cells, in 16-byte runs, as the shared
+    memory holds after the kernel's header, never more, and never more
+    than a block's range."""
+    a = bk.bsgs_align(dtype)
     for K in (1, 6, 8):
         per_cell = bk.bsgs_cell_bytes(K, dtype)
         assert per_cell == (16 * K + 4) * (4 if dtype == torch.float32
@@ -268,8 +270,10 @@ def test_bsgs_launch_plan_covers_every_cell_once(dtype, NC):
                     hits[lo:hi] += 1
                 assert (hits == 1).all()
                 assert 0 <= p.n_res <= p.chunk
-                assert p.smem_bytes == p.n_res * per_cell <= smem
-                assert p.n_res == p.chunk or (p.n_res + 1) * per_cell > smem
+                assert p.smem_bytes == (
+                    16 + p.n_res * per_cell if p.n_res else 0) <= smem
+                assert (p.n_res + a > p.chunk
+                        or 16 + (p.n_res + a) * per_cell > smem)
 
 
 def test_bsgs_wrapper_refuses_bad_input():

@@ -146,39 +146,96 @@ def test_bsgs_fused_equals_sequence(cuda, dtype, NC):
     for K in range(1, bk.MAX_BANDS + 1):
         dn, dms = dn8[:K], dms8[:K]
         for sweeps in range(7):
+            zs = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+            zp = bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)
             f0, n0 = bk.bsgs_apply.launches, bk.banded_apply.launches
             z = bk.bsgs_apply(dinv, dn, dms, sweeps, v)
             torch.cuda.synchronize()
             assert bk.bsgs_apply.launches == f0 + 1
             assert bk.banded_apply.launches == n0
             assert z.shape == (NC, 4) and z.dtype == dtype and z.is_cuda
-            zs = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
             assert torch.equal(z, zs), (K, sweeps)
-            zp = bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)
             assert _rel_err(z, zp) <= TOL[dtype], (K, sweeps)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_bsgs_residency_cases(cuda, dtype):
     """All cells resident, some, none (forced through the plan's shared
-    memory), and the card's own plan at 204,800 cells (some)."""
+    memory), and the card's own plan: none at 12,800 cells
+    (the bands fit in L2), some at 204,800."""
     K, sweeps = 6, 6
     NC = 12_800
     dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K)
     blocks = bk.bsgs_device_limits(cuda)["n_blocks"]
     per_cell = bk.bsgs_cell_bytes(K, dtype)
-    chunk = -(-NC // blocks)
+    a = bk.bsgs_align(dtype)
+    chunk = -(-(-(-NC // blocks)) // a) * a
     want = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
-    for smem, n_res in ((chunk * per_cell, chunk),
-                        (chunk // 2 * per_cell, chunk // 2), (0, 0)):
+    for smem, n_res in ((16 + chunk * per_cell, chunk),
+                        (16 + chunk // 2 * per_cell, chunk // 2 // a * a),
+                        (0, 0)):
         app = bk.BsgsApply(dinv, dn, dms, sweeps, smem_bytes=smem)
-        assert app.plan.n_res == n_res and app.plan.smem_bytes <= smem
+        assert app.plan.chunk == chunk and app.plan.n_res == n_res
+        assert app.plan.smem_bytes <= smem
         assert torch.equal(app(v), want), n_res
+    app = bk.BsgsApply(dinv, dn, dms, sweeps)
+    assert app.plan.n_res == 0 and app.plan.smem_bytes == 0
+    assert torch.equal(app(v), want)
     NC = 204_800
     dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K)
+    want = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
     app = bk.BsgsApply(dinv, dn, dms, sweeps)
     assert 0 < app.plan.n_res < app.plan.chunk
-    assert torch.equal(app(v), bk.bsgs_sequence(dinv, dn, dms, sweeps)(v))
+    assert torch.equal(app(v), want)
+
+
+def test_bsgs_flags_across_applies(cuda):
+    """2,000 applies of one operator back to back on one stream (the flags
+    never reset: each apply raises each by the sweeps), each equal to the
+    sequence; at 204,800 cells, f32, some cells resident."""
+    K, sweeps, NC = 6, 6, 204_800
+    dinv, dn, dms, _ = _bsgs_inputs(cuda, torch.float32, NC, K)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vs = [torch.randn(NC, 4, device=cuda, generator=g) for _ in range(4)]
+    seq = bk.bsgs_sequence(dinv, dn, dms, sweeps)
+    wants = [seq(v) for v in vs]
+    app = bk.BsgsApply(dinv, dn, dms, sweeps)
+    f0 = bk.bsgs_apply.launches
+    outs = [app(vs[i % 4]) for i in range(2000)]
+    torch.cuda.synchronize()
+    assert bk.bsgs_apply.launches == f0 + 2000
+    assert bool((app._flags == 2000 * sweeps).all())
+    bad = [i for i, z in enumerate(outs) if not torch.equal(z, wants[i % 4])]
+    assert not bad, bad[:10]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsgs_in_a_cuda_graph(cuda, dtype):
+    """An apply captured in a CUDA graph, between eager applies of the same
+    operator, stays equal to the sequence at every replay (the flags' count
+    is read on the card, not fixed at capture); 204,800 cells, some
+    resident."""
+    K, sweeps, NC = 6, 6, 204_800
+    dinv, dn, dms, _ = _bsgs_inputs(cuda, dtype, NC, K)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    vs = [torch.randn(NC, 4, device=cuda, dtype=dtype, generator=g)
+          for _ in range(3)]
+    seq = bk.bsgs_sequence(dinv, dn, dms, sweeps)
+    wants = [seq(v) for v in vs]
+    app = bk.BsgsApply(dinv, dn, dms, sweeps)
+    assert 0 < app.plan.n_res < app.plan.chunk
+    static_v = vs[0].clone()
+    app(static_v)              # sets the kernel's attributes before capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_z = app(static_v)
+    for i in range(60):
+        static_v.copy_(vs[i % 3])
+        graph.replay()
+        assert torch.equal(static_z, wants[i % 3]), i
+        if i % 7 == 0:                     # eager applies in between
+            assert torch.equal(app(vs[(i + 1) % 3]), wants[(i + 1) % 3]), i
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -186,7 +243,7 @@ def test_bsgs_residency_cases(cuda, dtype):
 def test_bsgs_skips_bands_outside_their_support(cuda, dtype, NC):
     """Bands zero outside a cell range (as the O-mesh seam bands are), with
     their supports given: the kernel skips them there and keeps only the
-    dense bands in shared memory, and still equals the sequence."""
+    dense bands on chip, and still equals the sequence."""
     K, sweeps = 6, 6
     dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K)
     ring = max(NC // 40, 1)
@@ -199,12 +256,18 @@ def test_bsgs_skips_bands_outside_their_support(cuda, dtype, NC):
     for smem in (None, 0):
         app = bk.BsgsApply(dinv, dn, dms, sweeps, support, smem_bytes=smem)
         assert torch.equal(app(v), want), smem
-    per_cell = bk.bsgs_cell_bytes(4, dtype)
     assert app.plan.n_res == 0
+    per_cell = bk.bsgs_cell_bytes(4, dtype)
     app = bk.BsgsApply(dinv, dn, dms, sweeps, support)
-    assert app.plan.n_res == min(app.plan.chunk,
-                                 bk.bsgs_device_limits(cuda)["smem_per_block"]
-                                 // per_cell)
+    p = app.plan
+    lim = bk.bsgs_device_limits(cuda)
+    room = (lim["smem_per_block"] - 16) // per_cell
+    a = bk.bsgs_align(dtype)
+    dense = bk.bsgs_dense_bands(support, NC)
+    fits = bk.bsgs_bands_fit_l2(support, dense, dtype, lim["l2_bytes"])
+    assert fits == (NC < 204_800)
+    assert p.n_res == (0 if fits else min(p.chunk, room) // a * a)
+    assert torch.equal(app(v), want)
     with pytest.raises(ValueError):
         bk.BsgsApply(dinv, dn, dms, sweeps, support[:5])
     with pytest.raises(ValueError):
