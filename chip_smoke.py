@@ -31,7 +31,11 @@ wrappers with the launch counts zeroed just before it and read just after:
     through the CLI at 640x320 (gather bsgs x6, row_set); the banded
     cylinder with Venkatakrishnan (K1, K1b, K2); the explicit cylinder
     through the CLI; TVD-RK3 on a 512x512 periodic vortex box; the heat
-    equation on a 512x512 square (V = 1 blocks, row_set).
+    equation on a 512x512 square (V = 1 blocks, row_set);
+  - the other solver options at 640x320 on the gather path: the block
+    ILU0, the aggregation multigrid, the line smoother, the matrix-free
+    JVP and FD matvecs, and warm start with GCRO-DR recycling (row_set
+    once per Krylov iteration of blocked GMRES).
 
 In order:
 
@@ -168,12 +172,33 @@ Each path of steps 15-19 prints one line (naca cli, limited banded,
 explicit cli, vortex, heat) with its steps, Krylov iterations, launches,
 wall time and rates, and the card's name and power limit.
 
+ 20. F: the JAX package's other solver options on the gather path
+     (cases/bigmesh_case.OPTIONS) at OPTIONS_MESH, 640x320, mixed
+     precision, each on a line of its own with the card: F1, the whole
+     case under the fixed-point block ILU0 (GATHER_ILU0), the main solve
+     to 1e-10 or ILU_MAIN_STEPS steps (steps, Krylov iterations, seconds
+     per main step, the factorization and apply times); F2, the bsgs x6
+     starter, then OPTION_STEPS main steps from its state under each of
+     amg, bline, the exact JVP matvec and the FD shell (seconds and Krylov
+     iterations per step, the residual reached, the pc's set-up and apply,
+     the AMG hierarchy, the lines), amg's first steps twice, bit for bit,
+     and the line smoother's apply on the NACA0012 O-mesh, where lines
+     form; F3, from the same state, bsgs x6 with warm start and GCRO-DR
+     recycling (k = 16) to 1e-10 or RECYCLE_MAIN_STEPS steps, beside the
+     plain bsgs x6 solve of step 5. Each: finite, falling residuals and
+     row_set once per Krylov iteration of blocked GMRES (gmres_dr runs
+     the classic path). Then at OPTIONS_CHECK_MESH, 160x80, each option
+     against the JAX package's CPU run of it
+     (records/jax_solver_options_history.json): the starter's steps, and
+     the first OPTIONS_AGREE main steps step for step (Krylov iterations
+     within 1, residuals within 1%).
+
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
 kernel record (launches of banded_apply and banded_bsgs from the banded
 640x320 solve of step 4, of row_set from the gather 640x320 solve of step
 5, and each path's counts under launches_by_path, the CLI of step 12 and
-the paths of steps 15-19 among them), and the one before that the seconds
+the paths of steps 15-20 among them), and the one before that the seconds
 each phase took.
 """
 
@@ -1768,6 +1793,353 @@ def heat_path(dev):
     return launches
 
 
+# Phase F: the JAX package's other solver options on the gather path
+# (cases/bigmesh_case.OPTIONS) at OPTIONS_MESH, and at OPTIONS_CHECK_MESH
+# against the JAX package's CPU runs of them (records/
+# jax_solver_options_history.py).
+JAX_OPTIONS_RECORD = "records/jax_solver_options_history.json"
+OPTIONS_MESH = (640, 320)        # F1-F3: cylinder_omesh, 204,800 cells
+ILU_MAIN_STEPS = 60              # F1: the ilu0 main solve's cap
+OPTION_STEPS = 20                # F2: main steps under each option
+F2_OPTIONS = ("amg", "bline", "mf-jvp", "mf-fd")
+AMG_REPEAT_STEPS = 3             # F2: amg steps run twice, bit for bit
+RECYCLE_MAIN_STEPS = 60          # F3: the recycling main solve's cap
+OPTIONS_CHECK_MESH = (160, 80)
+# main steps run at OPTIONS_CHECK_MESH (None: to convergence) and held
+# step for step to the record's classic run (Krylov iterations within 1,
+# residuals within 1%) over the first OPTIONS_AGREE. The port's CPU runs
+# part from the record where the Krylov solves stop at their 90-iteration
+# cap and the trajectory turns chaotic: amg at main step 14, mf-jvp at 13,
+# mf-fd at 11 (its relative gap grows about 3x a step from 1.2e-7), the
+# GCRO-DR run at 16 (its recycled spaces); ilu0 and bline not within 60
+# and 20 steps. The matrix-free runs are short here because a JVP matvec
+# costs about 80 ms on the card (PERF.md).
+OPTIONS_CHECK_STEPS = {"ilu0": 60, "amg": 16, "bline": 20, "mf-jvp": 6,
+                       "mf-fd": 8, "bsgs-recycle": 20}
+OPTIONS_AGREE = {"ilu0": 50, "amg": 12, "bline": 20, "mf-jvp": 6,
+                 "mf-fd": 6, "bsgs-recycle": 12}
+# the naca0012_omesh of phase B1, where lines of 32 cells form (the
+# cylinder's near-square cells form none): the line smoother's apply timed
+BLINE_NACA_MESH = (640, 320)
+
+
+def option_solver(name: str):
+    """(SteadyFlowCase, main solver) of the cylinder case with
+    bigmesh_case.OPTIONS[name]."""
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.cases.casesolvers import SteadyFlowCase, build_space
+    cfg = bigmesh_case.case_config(**bigmesh_case.OPTIONS[name])
+    case = SteadyFlowCase(cfg)
+    return case, case._make_solver(build_space(cfg), cfg.main)
+
+
+def pc_times(solver, cm, u, cfl) -> dict:
+    """A main step's Krylov operators at state u and `cfl`: the
+    preconditioner's set-up (make_preconditioner: factorization, Galerkin
+    operators, line factors) and one apply, and one matvec, in ms (CUDA
+    events, median)."""
+    import torch
+    lmesh = cm.to(torch.float32) if solver.lin.mixed_precision else cm
+    _, lrhs, ops = solver.step_operators(cm, u, cfl, lmesh)
+    mv, pc = solver._linear_operators(ops)
+    rec = dict(pc_setup_ms=event_ms(lambda: solver._linear_operators(ops), 5),
+               pc_apply_ms=event_ms(lambda: pc(lrhs), 20),
+               matvec_ms=event_ms(lambda: mv(lrhs), 10))
+    if solver.lin.pc == "ilu0":
+        from fvens_tpu_torch.solver.ilu import ilu_factorize
+        rec["ilu_factor_ms"] = event_ms(lambda: ilu_factorize(
+            ops.mesh, ops.jac, ops.ilu, sweeps=solver.lin.ilu_setup_sweeps),
+            5)
+    return rec
+
+
+def gather_launch_checks(name: str, launches: dict, appends: int):
+    check(launches["row_set"] == appends and appends > 0
+          and launches["banded_apply"] == launches["banded_bsgs"] == 0,
+          f"{name}: launches {launches} for {appends} basis appends")
+
+
+def ilu_path(dev):
+    """Phase F1: the cylinder case at OPTIONS_MESH with GATHER_ILU0, the
+    starter and the main solve to 1e-10 or ILU_MAIN_STEPS steps: finite,
+    falling residuals, row_set once per Krylov iteration (blocked GMRES);
+    the ILU0 factorization and apply timed at the last state. Returns the
+    launches."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    case, cm, u = bigmesh_case.build_case(dev, *OPTIONS_MESH,
+                                          **bigmesh_case.GATHER_ILU0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    u = case.execute_starter(cm, u)
+    torch.cuda.synchronize()
+    tm = time.perf_counter()
+    solver = case._make_solver(build_space(case.cfg), case.cfg.main)
+    u, info = solver.solve(cm, u, max_steps=ILU_MAIN_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    st = case.starter_info
+    res = [h[2] for h in info.history]
+    its = st.total_lin_iters + info.total_lin_iters
+    card_line("F1 ilu0", dict(
+        mesh=f"cylinder_omesh{OPTIONS_MESH}", cells=cm.n_cells,
+        pc="ilu0", pc_sweeps=solver.lin.pc_sweeps,
+        ilu_setup_sweeps=solver.lin.ilu_setup_sweeps,
+        starter_steps=st.steps, starter_krylov_iters=st.total_lin_iters,
+        starter_s=tm - t0, main_steps=info.steps, main_cap=ILU_MAIN_STEPS,
+        main_krylov_iters=info.total_lin_iters,
+        krylov_iters_per_step=info.total_lin_iters / max(info.steps, 1),
+        converged=info.converged, final_res=res[-1],
+        main_s_per_step=(t1 - tm) / max(info.steps, 1), wall_s=t1 - t0,
+        residuals=res, launches=launches,
+        **pc_times(solver, cm, u, info.history[-1][3])))
+    check(bool(torch.isfinite(u).all()) and all(np.isfinite(r) for r in res),
+          "the ilu0 run went non-finite")
+    check(res[-1] < res[0], f"the ilu0 main residual did not fall: {res}")
+    gather_launch_checks("F1 ilu0", launches, its)
+    return launches
+
+
+def options_steps(dev):
+    """Phase F2: the bsgs x6 starter at OPTIONS_MESH, then OPTION_STEPS
+    main steps from its state under each of F2_OPTIONS: finite residuals
+    that fall, row_set once per Krylov iteration; seconds and Krylov
+    iterations per step, the pc's set-up and apply; the AMG hierarchy and
+    the lines. The amg run's first AMG_REPEAT_STEPS steps run twice and
+    must repeat to the bit. Returns (mesh, starter state, launches by
+    path)."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    case, cm, u = bigmesh_case.build_case(dev, *OPTIONS_MESH,
+                                          **bigmesh_case.GATHER_BSGS)
+    t0 = time.perf_counter()
+    u = case.execute_starter(cm, u)
+    torch.cuda.synchronize()
+    st = case.starter_info
+    print(f"F2 bsgs x6 starter at {OPTIONS_MESH}: {st.steps} steps, "
+          f"{st.total_lin_iters} Krylov iterations, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+    for name in F2_OPTIONS:
+        _, solver = option_solver(name)
+        extra = {}
+        if name == "amg":
+            t0 = time.perf_counter()
+            mg = solver._mg(cm)
+            extra = dict(hierarchy_host_s=time.perf_counter() - t0,
+                         levels=[dict(cells=int(lv.c_mask.sum()),
+                                      padded=lv.NCp, slots=lv.S)
+                                 for lv in mg.levels])
+            first = [solver.solve(cm, u, max_steps=AMG_REPEAT_STEPS)[1]
+                     .history for _ in range(2)]
+            check(first[0] == first[1], "amg steps do not repeat: "
+                  f"{first[0]} vs {first[1]}")
+        if name == "bline":
+            t0 = time.perf_counter()
+            lines = solver._lines(cm)
+            extra = dict(lines_host_s=time.perf_counter() - t0,
+                         lines=lines.n_lines, Lmax=lines.Lmax)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        un, info = solver.solve(cm, u, max_steps=OPTION_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        res = [h[2] for h in info.history]
+        its = info.total_lin_iters
+        card_line(f"F2 {name}", dict(
+            mesh=f"cylinder_omesh{OPTIONS_MESH}", option=name,
+            lin=bigmesh_case.OPTIONS[name], main_steps=info.steps,
+            converged=info.converged, krylov_iters=its,
+            krylov_iters_per_step=its / max(info.steps, 1),
+            s_per_step=wall / max(info.steps, 1), wall_s=wall,
+            residual_after=res[-1], residuals=res, launches=launches,
+            **extra, **pc_times(solver, cm, un, info.history[-1][3])))
+        check((info.steps == OPTION_STEPS or info.converged)
+              and all(np.isfinite(r) for r in res)
+              and bool(torch.isfinite(un).all()),
+              f"F2 {name}: {info.steps} steps, residuals {res}")
+        check(res[-1] < res[0], f"F2 {name}: the residual did not fall")
+        gather_launch_checks(f"F2 {name}", launches, its)
+        out[f"F2 cylinder {OPTIONS_MESH[0]}x{OPTIONS_MESH[1]} {name}, "
+            f"{OPTION_STEPS} main steps"] = \
+            launches
+    bline_lines_apply(dev)
+    return cm, u, out
+
+
+def bline_lines_apply(dev):
+    """The line smoother where lines form: naca0012_omesh(BLINE_NACA_MESH)
+    (the transonic ctrl's physics at free stream, f32 Jacobian at CFL
+    1000): its lines, Lmax, and the set-up (the lines' elimination
+    factors) and apply of 2 sweeps, in ms."""
+    import torch
+    from fvens_tpu_torch.io_config.ctrl import parse_control_file
+    from fvens_tpu_torch.mesh import compile_mesh
+    from fvens_tpu_torch.mesh.meshgen import naca0012_omesh
+    from fvens_tpu_torch.cases.casesolvers import build_space, initial_state
+    from fvens_tpu_torch.solver import jacobian as jacmod
+    from fvens_tpu_torch.solver.lines import lines_from_mesh
+    from fvens_tpu_torch.solver.linear import make_preconditioner
+    cfg = parse_control_file(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), NACA_CTRL))
+    cm = compile_mesh(naca0012_omesh(*BLINE_NACA_MESH), cfg.bcs,
+                      dtype=torch.float64, device=dev)
+    space = build_space(cfg)
+    u = initial_state(space, cm)
+    _, dt = space.compute_residual(cm, u, True)
+    lm = cm.to(torch.float32)
+    jac = jacmod.add_pseudotime_term(
+        lm, space.assemble_jacobian(lm, u.float()), 1000.0, dt.float())
+    t0 = time.perf_counter()
+    lines = lines_from_mesh(cm)
+    host_s = time.perf_counter() - t0
+    v = torch.ones_like(u, dtype=torch.float32)
+    pc = make_preconditioner(lm, jac, "bline", 2, lines=lines)
+    z = pc(v)
+    card_line("F2 bline on the NACA0012 O-mesh", dict(
+        mesh=f"naca0012_omesh{BLINE_NACA_MESH}", cells=cm.n_cells,
+        lines=lines.n_lines, Lmax=lines.Lmax, lines_host_s=host_s,
+        pc_setup_ms=event_ms(lambda: make_preconditioner(
+            lm, jac, "bline", 2, lines=lines), 5),
+        pc_apply_ms=event_ms(lambda: pc(v), 20)))
+    check(lines.Lmax > 1 and bool(torch.isfinite(z).all()),
+          "no line formed on the NACA0012 O-mesh, or a non-finite apply")
+
+
+def recycle_path(dev, cm, u, plain: dict):
+    """Phase F3: from the F2 starter's state, the main solve with
+    BSGS_RECYCLE (warm start, GCRO-DR k = 16 below the gate) to 1e-10 or
+    RECYCLE_MAIN_STEPS steps, beside the plain bsgs x6 gather solve of
+    this script (`plain`, gather_path's report): finite, falling
+    residuals; row_set once per Krylov iteration of the steps before the
+    gate opens (gmres_dr runs the classic path). Returns the launches."""
+    import torch
+    _, solver = option_solver("bsgs-recycle")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    un, info = solver.solve(cm, u, max_steps=RECYCLE_MAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    hist = info.history
+    res = [h[2] for h in hist]
+    gate = solver.lin.deflation_start_relres * hist[0][2]
+    deflated = [k for k in range(1, len(hist)) if hist[k - 1][2] <= gate]
+    blocked_its = sum(h[4] for k, h in enumerate(hist) if k not in deflated)
+    card_line("F3 bsgs x6 + warm start + GCRO-DR", dict(
+        mesh=f"cylinder_omesh{OPTIONS_MESH}", deflation_k=solver.lin.deflation_k,
+        main_steps=info.steps, main_cap=RECYCLE_MAIN_STEPS,
+        main_krylov_iters=info.total_lin_iters, converged=info.converged,
+        final_res=res[-1], deflated_steps=len(deflated),
+        s_per_step=wall / max(info.steps, 1), wall_s=wall, residuals=res,
+        launches=launches,
+        plain_bsgs=dict(main_steps=plain["main_steps"],
+                        main_krylov_iters=plain["main_krylov_iters"],
+                        converged=plain["converged"])))
+    check(all(np.isfinite(r) for r in res) and bool(torch.isfinite(un).all()),
+          "F3: non-finite residual")
+    check(res[-1] < res[0], "F3: the residual did not fall")
+    # retried steps (not in the history) would hide which solves recycled
+    if len(info.step_times) == info.steps:
+        gather_launch_checks("F3", launches, blocked_its)
+    return launches
+
+
+def options_vs_record(dev):
+    """At OPTIONS_CHECK_MESH, each option of the JAX record's classic runs
+    against that run: the starter's steps exactly (Krylov iterations within
+    2%), the first OPTIONS_AGREE main steps step for step (Krylov
+    iterations within 1, residuals within 1%); where OPTIONS_CHECK_STEPS
+    runs to convergence, main steps and Krylov iterations within 10% of the
+    range of the record's runs of the option (classic and blocked). Every
+    option runs and prints where it first departs from the record before
+    any failure is raised."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    rec = _load(JAX_OPTIONS_RECORD)
+    mesh = f"cylinder_omesh{OPTIONS_CHECK_MESH}"
+    bcase, cm, u0 = bigmesh_case.build_case(dev, *OPTIONS_CHECK_MESH,
+                                            **bigmesh_case.GATHER_BSGS)
+    u_bsgs = bcase.execute_starter(cm, u0)
+    failures = []
+    for run in (r for r in rec["runs"] if not r["blocked_gmres"]):
+        name = run["option"]
+        check(run["mesh"] == mesh, f"the record of {name} is not {mesh}")
+        case, solver = option_solver(name)
+        if run["starter"] == "own":
+            u = case.execute_starter(cm, u0)
+            st = case.starter_info
+        else:
+            u, st = u_bsgs, bcase.starter_info
+        t0 = time.perf_counter()
+        _, info = solver.solve(cm, u, max_steps=OPTIONS_CHECK_STEPS[name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s, ref = run["starter_run"], run["main"]["history"]
+        departs = next((k + 1 for k, (h, r) in enumerate(
+            zip(info.history, ref)) if abs(h[4] - r[3]) > 1
+            or abs(h[2] - r[1]) > 0.01 * r[1]), None)
+        print(f"{mesh} {name}: starter {st.steps} / {st.total_lin_iters}, "
+              f"main {info.steps} / {info.total_lin_iters} in {wall:.2f} s, "
+              f"final {info.finalres!r}, first departs from the record at "
+              f"main step {departs}; the JAX package's: starter "
+              f"{s['steps']} / {s['krylov_iters']}, main "
+              f"{run['main']['steps']} / {run['main']['krylov_iters']}, "
+              f"final {run['main']['final_res']!r}; residuals "
+              f"{[h[2] for h in info.history]}", flush=True)
+        if not (st.steps == s["steps"] and abs(st.total_lin_iters
+                                               - s["krylov_iters"])
+                <= 0.02 * s["krylov_iters"]):
+            failures.append(f"{name}: the starter departs from the JAX "
+                            "package's")
+        agree = OPTIONS_AGREE[name]
+        if len(info.history) < agree or (departs is not None
+                                         and departs <= agree):
+            failures.append(f"{name}: main step {departs} departs from the "
+                            f"record (held for {agree} steps)")
+        if OPTIONS_CHECK_STEPS[name] is None:
+            if not info.converged:
+                failures.append(f"{name}: the {mesh} solve did not converge")
+            refs = [r["main"] for r in rec["runs"] if r["option"] == name]
+            for got, key in ((info.steps, "steps"),
+                             (info.total_lin_iters, "krylov_iters")):
+                vals = [r[key] for r in refs]
+                if not 0.9 * min(vals) <= got <= 1.1 * max(vals):
+                    failures.append(
+                        f"{name}: main {key} {got} not within 10% of the "
+                        f"JAX package's {min(vals)}-{max(vals)}")
+    check(not failures, "; ".join(failures))
+
+
+def options_phases(dev, paths: dict, gather_rep: dict):
+    """Phase F: F1, F2 and F3 at OPTIONS_MESH (their launches into
+    `paths`), then each option at OPTIONS_CHECK_MESH against the JAX
+    record."""
+    mesh = f"cylinder {OPTIONS_MESH[0]}x{OPTIONS_MESH[1]}"
+    name = f"F1 {mesh} gather ilu0, starter + main to 1e-10 or " \
+        f"{ILU_MAIN_STEPS} steps"
+    with phase(name):
+        paths[name] = ilu_path(dev)
+    with phase(f"F2: {mesh} bsgs x6 starter, {OPTION_STEPS} main steps of "
+               + ", ".join(F2_OPTIONS)):
+        cm, u, out = options_steps(dev)
+        paths.update(out)
+    name = f"F3 {mesh} bsgs x6 + warm start + GCRO-DR k=16, main to " \
+        f"1e-10 or {RECYCLE_MAIN_STEPS} steps"
+    with phase(name):
+        paths[name] = recycle_path(dev, cm, u, gather_rep)
+    del cm, u
+    with phase(f"F: cylinder {OPTIONS_CHECK_MESH[0]}x"
+               f"{OPTIONS_CHECK_MESH[1]} options vs the JAX record"):
+        options_vs_record(dev)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1804,7 +2176,7 @@ def main() -> int:
     with phase("cylinder 640x320 solve (warm-up + timed)"):
         _, paths["cylinder 640x320 banded"] = cylinder_path(dev)
     with phase("cylinder 640x320 gather bsgs x6 solve"):
-        _, paths["cylinder 640x320 gather bsgs"] = gather_path(dev)
+        gather_rep, paths["cylinder 640x320 gather bsgs"] = gather_path(dev)
     with phase(f"cylinder 640x320 gather bcsgs x3: starter, {GATHER_STEPS} "
                "main steps"):
         paths["cylinder 640x320 gather bcsgs, main steps"] = bcsgs_steps(dev)
@@ -1853,6 +2225,7 @@ def main() -> int:
     heat = f"heat {HEAT_N[-1]}x{HEAT_N[-1]}"
     with phase(f"E: {heat}"):
         paths[heat] = heat_path(dev)
+    options_phases(dev, paths, gather_rep)
 
     def main_row(rows, **want):
         return next(r for r in rows if r["dtype"] == "float32"

@@ -2,14 +2,18 @@
 
     python -m fvens_tpu_torch.cases.profile_step \
         [--case bench|cylinder|cylinder-gather|rowset|slot-gather|kernels]
-        [--pc bsgs|bcsgs] [--device cuda|cpu]
+        [--pc bsgs|bcsgs|ilu0|amg|bline|mf-jvp|mf-fd|bsgs-recycle]
+        [--device cuda|cpu]
 
 `bench` (the default) is the bench solve of cases/bench_case.py on its
 naca0012_omesh(160, 80); `cylinder` is the main solve of
 cases/bigmesh_case.py on its 640x320 mesh, after the first-order starter;
 `cylinder-gather` the same on the gather path (GATHER_BSGS, or with
-`--pc bcsgs` GATHER_BCSGS), whose matvec and preconditioner are plain
-PyTorch, so it runs once. `rowset` times the row_set kernel alone
+`--pc` another preconditioner or solver option: bcsgs, GATHER_BCSGS, or a
+preset of bigmesh_case.OPTIONS), whose matvec and preconditioner are plain
+PyTorch, so it runs once; with a matrix-free preset the matvec is the
+JVP or FD product, and with bsgs-recycle GMRES is also timed as gmres_dr,
+first without and then with a recycled space. `rowset` times the row_set kernel alone
 (rowset_profile); `slot-gather` the gather path's slot gather alone, on
 the card or (`--device cpu`) on the CPU (slot_gather_profile). `kernels`
 times the three kernels on their main-path operators, in two rounds
@@ -63,8 +67,8 @@ from ..solver import jacobian as jacmod
 from ..solver import linear
 from ..solver import rowset_kernels as rk
 from ..solver.banded import make_banded_bsgs
-from ..solver.linear import gmres
-from ..solver.steady import GatherOperators, banded_operators
+from ..solver.linear import gmres, gmres_dr
+from ..solver.steady import banded_operators
 from . import bigmesh_case
 from .bench_case import BENCH_MESH, bench_solver
 from .casesolvers import build_space, initial_state
@@ -74,7 +78,8 @@ from .casesolvers import build_space, initial_state
 WARM_STEPS = 20
 MESHES = {"bench": BENCH_MESH, "cylinder": bigmesh_case.BIGMESH,
           "cylinder-gather": bigmesh_case.BIGMESH}
-GATHER = {"bsgs": bigmesh_case.GATHER_BSGS, "bcsgs": bigmesh_case.GATHER_BCSGS}
+GATHER = dict({"bsgs": bigmesh_case.GATHER_BSGS,
+                "bcsgs": bigmesh_case.GATHER_BCSGS}, **bigmesh_case.OPTIONS)
 
 
 def _sync(dev):
@@ -325,18 +330,24 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench",
     solver, cm, u, info = _warm_state(dev, case, mesh, warm, pallas, lin)
     cfl, rtol = info.history[-1][3], solver.lin.rtol
     bl = solver._banded(cm)
-    lmesh = cm.to(torch.float32)
+    mixed = solver.lin.mixed_precision
+    lmesh = cm.to(torch.float32) if mixed else cm
     sp = solver.space
     rec = dict(case=case, mesh=list(mesh), pallas=pallas, warm_steps=warm,
                cfl=cfl, banded=bl is not None, pc=solver.lin.pc,
-               pc_sweeps=solver.lin.pc_sweeps)
+               pc_sweeps=solver.lin.pc_sweeps,
+               option=pc if gather else None)
     rec["residual_ms"], (rhs, dt) = sync_ms(
         dev, lambda: sp.compute_residual(cm, u, True))
-    lu, lrhs, ldt = u.float(), rhs.float(), dt.float()
+    kdt = torch.float32 if mixed else u.dtype
+    lu, lrhs, ldt = u.to(kdt), rhs.to(kdt), dt.to(kdt)
     rec["jacobian_ms"], jac = sync_ms(dev, lambda: jacmod.add_pseudotime_term(
         lmesh, sp.assemble_jacobian(lmesh, lu), cfl, ldt))
     if gather:
-        ops = GatherOperators(lmesh, jac)
+        mf = (solver._matrix_free_matvec(cm, lmesh, u, lu, rhs, dt, ldt, cfl,
+                                         kdt)
+              if solver.lin.matrix_free else None)
+        ops = solver._gather_operators(cm, lmesh, jac, mf)
         rec["operators_ms"], (mv, pc_fn) = sync_ms(
             dev, lambda: solver._linear_operators(ops))
     else:
@@ -354,6 +365,15 @@ def profile(dev, mesh, warm: int, pallas: bool, case: str = "bench",
         maxiter=solver.lin.maxiter, rtol=rtol), 3)
     rec["gmres_iters"] = its
     rec["gmres_ms_per_iter"] = rec["gmres_ms"] / max(its, 1)
+    if solver.lin.deflation_k:
+        k = solver.lin.deflation_k
+        U = None
+        for key in ("gmres_dr_first", "gmres_dr_recycled"):
+            rec[f"{key}_ms"], (_, its, _, U) = sync_ms(dev, lambda: gmres_dr(
+                mv, lrhs, torch.zeros_like(lrhs), pc_fn, U=U, k=k,
+                restart=solver.lin.restart, maxiter=solver.lin.maxiter,
+                rtol=rtol), 3)
+            rec[f"{key}_iters"] = its
     n = lrhs.numel()
     rec["blocked"] = n >= linear._BLOCKED_N_THRESHOLD
     if rec["blocked"]:

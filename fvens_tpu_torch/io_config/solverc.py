@@ -1,8 +1,8 @@
 """PETSc-style options-file (.solverc) reader: a copy of the JAX package's
 io_config/solverc.py. Its mapping was chosen for that package on the TPU
-and is kept as it is, so a .solverc means the same in both packages; an
-option that maps to a preconditioner or operator the port does not have
-(gamg -> amg, matrix-free) reaches the solver, which refuses it.
+and is kept as it is, so a .solverc means the same in both packages
+(gamg -> the aggregation multigrid, -matrix_free_jacobian -> the
+finite-difference matvec, both in the port's solver).
 
 The reference drives its linear solver through the PETSc options database:
 `fvens_steady case.ctrl -options_file opts.solverc`

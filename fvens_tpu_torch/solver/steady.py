@@ -31,18 +31,30 @@ fetch per step. The linear solve takes one of the JAX package's two paths
     contraction on both. The kernels take 4x4 blocks only: a banded V = 1
     system (DiffusionFV) on the card raises NotImplementedError;
   - the gather path everywhere else (the JAX package's default): the slot
-    matvec and make_preconditioner (none, bjacobi, bsgs, bcsgs) of
-    solver/linear.py, plain PyTorch.
+    matvec and make_preconditioner of solver/linear.py (none, bjacobi,
+    bsgs, bcsgs, ilu0, bline, amg), plain PyTorch; the ilu0, bline and amg
+    structures are built once per mesh on the host (_ilu, _lines, _mg) and
+    kept on the mesh's device.
+
+With LinearSolverConfig.matrix_free the Krylov matvec is not the assembled
+Jacobian (which still builds the preconditioner) but, as in the JAX
+package, the exact JVP of the residual plus the pseudo-time diagonal
+(torch.func.jvp, at the Krylov precision) or, with matrix_free_fd, the
+reference's finite-difference shell at the state's full precision; the
+matrix-free path never takes the banded operators. warm_start starts each
+Krylov solve from the previous Newton direction (zeroed on the device if
+it is not finite); deflation_k > 0 runs gmres_dr (GCRO-DR recycling) once
+the residual is below deflation_start_relres of the first, carrying its
+recycled space from step to step and dropping it after a recovery, a
+frozen-residual reset or when the gate closes.
 
 The solve resumes from `checkpoint_path` where that file exists and saves
 the state and the controller every `checkpoint_every` accepted steps;
 `functional_fn` is evaluated on the new state every `functional_every`
 steps and its values join the logger's record, as in the JAX package.
 
-Not ported yet, and refused with NotImplementedError: the ilu0, bline and
-amg preconditioners, matrix-free operators, warm start, GCRO-DR recycling,
-on-device chunked stepping (device_steps), pipelined stepping and
-baked-mesh programs.
+Not ported, and refused with NotImplementedError: on-device chunked
+stepping (device_steps), pipelined stepping and baked-mesh programs.
 """
 
 from __future__ import annotations
@@ -64,9 +76,11 @@ from .banded import (BandedStructure, banded_blocks, banded_dn_blocks,
                      banded_structure, make_banded_bsgs, make_banded_matvec)
 from .banded_kernels import (make_banded_bsgs_kernel,
                              make_banded_matvec_kernel)
-from .linear import (UNPORTED_PRECONDITIONERS, BlockJacobian,
-                     block_jacobi_inverse, gmres, make_bsr_matvec,
-                     make_preconditioner)
+from .ilu import ilu_structure
+from .linear import (BlockJacobian, block_jacobi_inverse, gmres, gmres_dr,
+                     make_bsr_matvec, make_preconditioner)
+from .lines import lines_from_mesh
+from .multigrid import build_hierarchy
 from .relaxation import get_update_scheme
 
 
@@ -118,9 +132,15 @@ def banded_operators(bl, jac) -> BandedOperators:
 class GatherOperators:
     """The slot-gather Krylov operators of one implicit step: the Jacobian
     in per-cell-slot block form on the mesh whose neighbour slots they
-    gather (at the Krylov precision)."""
+    gather (at the Krylov precision), the preconditioner's per-mesh
+    structure where it needs one, and the matrix-free matvec in place of
+    the Jacobian's where LinearSolverConfig.matrix_free is set."""
     mesh: object           # the CompiledMesh
     jac: BlockJacobian
+    lines: object = None   # solver/lines.py LineStructure (pc='bline')
+    mg: object = None      # solver/multigrid.py MGHierarchy (pc='amg')
+    ilu: object = None     # solver/ilu.py ILUStructure (pc='ilu0')
+    matvec: Optional[object] = None
 
 
 def residual_norm(mesh, rhs):
@@ -256,20 +276,47 @@ class SteadyBackwardEuler:
     log_label = "BE"      # class attr (not a field): logger prefix
 
     def _check_supported(self):
-        cfg, lin = self.cfg, self.lin
+        cfg = self.cfg
         missing = [name for name, on in (
             ("PseudoTimeConfig.device_steps > 1", cfg.device_steps > 1),
             ("PseudoTimeConfig.pipeline", cfg.pipeline),
             ("PseudoTimeConfig.bake_mesh", cfg.bake_mesh),
-            ("LinearSolverConfig.warm_start", lin.warm_start),
-            ("LinearSolverConfig.deflation_k > 0", lin.deflation_k > 0),
-            ("LinearSolverConfig.matrix_free", lin.matrix_free),
-            (f"pc='{lin.pc}' (ROADMAP queue 1 item 8)",
-             lin.pc in UNPORTED_PRECONDITIONERS),
         ) if on]
         if missing:
             raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing))
+                "not ported: " + ", ".join(missing))
+
+    def _cached(self, name, mesh, build):
+        """A host-built per-mesh structure, cached on the solver."""
+        cache = self.__dict__.get(name)
+        if cache is None or cache[0] is not mesh:
+            cache = (mesh, build(mesh))
+            setattr(self, name, cache)
+        return cache[1]
+
+    def _lines(self, mesh):
+        """Line detection (pc='bline' only), cached per mesh."""
+        if self.lin.pc != "bline":
+            return None
+        return self._cached("_lines_cache", mesh, lines_from_mesh)
+
+    def _mg(self, mesh):
+        """The AMG hierarchy (pc='amg' only), cached per mesh."""
+        if self.lin.pc != "amg":
+            return None
+        return self._cached("_mg_cache", mesh, lambda m: build_hierarchy(
+            m, n_levels=self.lin.mg_levels))
+
+    def _mg_opts(self):
+        return dict(nu1=self.lin.mg_nu1, nu2=self.lin.mg_nu2,
+                    coarse_sweeps=self.lin.mg_coarse_sweeps,
+                    cycles=self.lin.mg_cycles)
+
+    def _ilu(self, mesh):
+        """The ILU0 sparsity analysis (pc='ilu0' only), cached per mesh."""
+        if self.lin.pc != "ilu0":
+            return None
+        return self._cached("_ilu_cache", mesh, ilu_structure)
 
     def _banded(self, mesh):
         """Host-side band analysis, cached per mesh (LinearSolverConfig.
@@ -277,10 +324,7 @@ class SteadyBackwardEuler:
         band-coverable: the step then takes the gather path."""
         if not self.lin.banded:
             return None
-        cache = getattr(self, "_banded_cache", None)
-        if cache is None or cache[0] is not mesh:
-            self._banded_cache = (mesh, banded_structure(mesh))
-        return self._banded_cache[1]
+        return self._cached("_banded_cache", mesh, banded_structure)
 
     def _kernel_on(self, x):
         """The CUDA banded kernel runs when the config allows it and the
@@ -292,8 +336,9 @@ class SteadyBackwardEuler:
         """The residual at state u and the Krylov system of one implicit
         step at `cfl`: (rhs, lrhs, ops) with rhs at u's dtype, lrhs and ops
         at the Krylov precision, and ops BandedOperators where the banded
-        path applies (band analysis `bl`, pc bjacobi or bsgs), else
-        GatherOperators.
+        path applies (band analysis `bl`, pc bjacobi or bsgs, not matrix
+        free), else GatherOperators (with the matrix-free matvec where
+        LinearSolverConfig.matrix_free is set).
 
         `lmesh` (optional): precomputed f32 mesh for the mixed-precision
         path (LinearSolverConfig.mixed_precision): the Newton DIRECTION
@@ -315,9 +360,60 @@ class SteadyBackwardEuler:
         jac = self.space.assemble_jacobian(lmesh, lu)
         # a Python cfl times an f32 tensor rounds cfl to f32 first
         jac = jacmod.add_pseudotime_term(lmesh, jac, cfl, ldt)
-        if bl is not None and self.lin.pc in ("bjacobi", "bsgs"):
+        if (bl is not None and not self.lin.matrix_free
+                and self.lin.pc in ("bjacobi", "bsgs")):
             return rhs, lrhs, banded_operators(bl, jac)
-        return rhs, lrhs, GatherOperators(lmesh, jac)
+        mv = (self._matrix_free_matvec(mesh, lmesh, u, lu, rhs, dt, ldt,
+                                       cfl, lrhs.dtype)
+              if self.lin.matrix_free else None)
+        return rhs, lrhs, self._gather_operators(mesh, lmesh, jac, mv)
+
+    def _gather_operators(self, mesh, lmesh, jac, matvec=None):
+        """GatherOperators on `lmesh` with the preconditioner's structure,
+        built from (and cached for) the full-precision `mesh`."""
+        return GatherOperators(lmesh, jac, lines=self._lines(mesh),
+                               mg=self._mg(mesh), ilu=self._ilu(mesh),
+                               matvec=matvec)
+
+    def _matrix_free_matvec(self, mesh, lmesh, u, lu, rhs, dt, ldt, cfl,
+                            kdt):
+        """The matrix-free Krylov matvec of the JAX package's step, its
+        result at the Krylov dtype `kdt`:
+
+          - matrix_free_fd: the reference's finite-difference shell at the
+            state's full precision (alinalg.cpp:126,167-202), perturbation
+            p = fd_eps/||x||, J x ~ diag x - (rhs(u + p x) - rhs(u))/p;
+          - else the exact JVP of -rhs plus the pseudo-time diagonal, at
+            the Krylov precision (f32 state and mesh under mixed
+            precision).
+
+        Under mixed precision the FD shell still differences at the
+        state's f64, the Krylov vector taken up to f64 first (at f32 the
+        perturbation's floor 1e-300 is 0, and GMRES's first product, with
+        x = 0, would divide by it), and its product lands in the f32 basis,
+        so it is cast there. The JAX package cannot run this case: its f64
+        product enters its f32 GMRES loop, which refuses the carry."""
+        space = self.space
+        if self.lin.matrix_free_fd:
+            diag = (mesh.area / (cfl * dt) * mesh.cell_mask)[:, None]
+            eps0 = self.lin.fd_eps
+
+            def matvec(x):
+                x = x.to(u.dtype)
+                p = eps0 / torch.clamp_min(torch.sqrt((x * x).sum()),
+                                           1e-300)
+                rp = space.compute_residual(mesh, u + p * x, False)[0]
+                return (diag * x - (rp - rhs) / p).to(kdt)
+            return matvec
+        diag = (lmesh.area / (cfl * ldt) * lmesh.cell_mask)[:, None]
+
+        def residual(v):
+            return space.compute_residual(lmesh, v, False)[0]
+
+        def matvec(x):
+            _, tang = torch.func.jvp(residual, (lu,), (x,))
+            return diag * x - tang
+        return matvec
 
     def _linear_operators(self, ops):
         """(matvec, pc): on the gather path the slot matvec and
@@ -326,9 +422,12 @@ class SteadyBackwardEuler:
         the plain D^-1 v contraction on both."""
         lin = self.lin
         if isinstance(ops, GatherOperators):
-            return (make_bsr_matvec(ops.mesh, ops.jac),
-                    make_preconditioner(ops.mesh, ops.jac, lin.pc,
-                                        lin.pc_sweeps))
+            mv = (ops.matvec if ops.matvec is not None
+                  else make_bsr_matvec(ops.mesh, ops.jac))
+            return mv, make_preconditioner(
+                ops.mesh, ops.jac, lin.pc, lin.pc_sweeps, lines=ops.lines,
+                mg=ops.mg, mg_opts=self._mg_opts(), ilu=ops.ilu,
+                ilu_setup=lin.ilu_setup_sweeps)
         kernel = self._kernel_on(ops.D)
         if kernel and ops.D.shape[-1] != 4:
             raise NotImplementedError(
@@ -349,16 +448,38 @@ class SteadyBackwardEuler:
         return mv, make_banded_bsgs(ops.Dinv, ops.DNbt, ops.bl.offsets,
                                     lin.pc_sweeps)
 
-    def _step(self, mesh, u, cfl, rtol, omega_cap=1.0, lmesh=None, bl=None):
+    def _step(self, mesh, u, cfl, rtol, omega_cap=1.0, lmesh=None, bl=None,
+              du0=None, U0=None, defl=False, return_carry=False):
         """One implicit pseudo-time step. Returns (unew, res, lin_iters) with
         res a host float (NaN when any residual/state/update component is
-        non-finite)."""
+        non-finite); with `return_carry` also du, the Newton direction at
+        u's dtype, and U, the recycled space gmres_dr returns (None unless
+        `defl`).
+
+        `du0`: the previous direction as the Krylov initial guess
+        (warm_start), zeroed on the device where any entry is not finite.
+        `defl`: solve with gmres_dr (GCRO-DR, deflation_k directions),
+        recycling `U0` (None: a first solve that only harvests)."""
         rhs, lrhs, ops = self.step_operators(mesh, u, cfl, lmesh, bl)
         matvec, pc = self._linear_operators(ops)
 
-        du, iters, relres = gmres(matvec, lrhs, torch.zeros_like(lrhs), pc,
-                                  restart=self.lin.restart,
-                                  maxiter=self.lin.maxiter, rtol=rtol)
+        if du0 is not None:
+            x0 = du0.to(lrhs.dtype)
+            # a non-finite stale guess must never poison the solve
+            x0 = torch.where(torch.isfinite(x0).all(), x0,
+                             torch.zeros_like(x0))
+        else:
+            x0 = torch.zeros_like(lrhs)
+        U = None
+        if defl:
+            du, iters, relres, U = gmres_dr(
+                matvec, lrhs, x0, pc, U=U0, k=self.lin.deflation_k,
+                restart=self.lin.restart, maxiter=self.lin.maxiter,
+                rtol=rtol)
+        else:
+            du, iters, relres = gmres(matvec, lrhs, x0, pc,
+                                      restart=self.lin.restart,
+                                      maxiter=self.lin.maxiter, rtol=rtol)
         du = du.to(u.dtype)
 
         phy = self.space.phy            # None for DiffusionFV
@@ -394,6 +515,8 @@ class SteadyBackwardEuler:
                                      device=rhs.device)).item()
         if not np.isfinite(relres):
             res = float("nan")
+        if return_carry:
+            return unew, res, iters, du, U
         return unew, res, iters
 
     def solve(self, mesh, u0, log_every: int = 0, logger=None,
@@ -456,6 +579,10 @@ class SteadyBackwardEuler:
         stall_count = 0
         # trust-region cap, shrinks on failures (restored across resume)
         cfl_cap = resumed_cap if resumed_cap > 0 else float("inf")
+        warm = self.lin.warm_start
+        defl = self.lin.deflation_k > 0
+        du_prev = torch.zeros_like(u) if warm else None
+        U_defl = None           # recycled Krylov space (lin.deflation_k)
         while step < nsteps:
             if step > 0:
                 rc = (linear_ramp(self.cfg.cfl_init, self.cfg.cfl_fin,
@@ -468,9 +595,21 @@ class SteadyBackwardEuler:
                         rtol_floor, raise_relres, res, resold, initres,
                         ramped_cfl=rc)]
             u_prev = u
+            # GCRO-DR only below deflation_start_relres: during the
+            # transient the Jacobian changes violently between steps and a
+            # recycled space is stale
+            defl_on = (defl and step > 0
+                       and res <= self.lin.deflation_start_relres * initres)
+            if not defl_on:
+                U_defl = None     # space from before a recovery/gate-close
             ts = time.perf_counter()
-            u, res_new, iters = self._step(mesh, u, cfl, rtol, omega_cap,
-                                           lmesh=lmesh, bl=bl)
+            u, res_new, iters, du, U_new = self._step(
+                mesh, u, cfl, rtol, omega_cap, lmesh=lmesh, bl=bl,
+                du0=du_prev, U0=U_defl, defl=defl_on, return_carry=True)
+            if warm:
+                du_prev = du
+            if defl_on:
+                U_defl = U_new
             info.step_times.append((time.perf_counter() - ts, iters))
             fnl_log = {}
             if (self.functional_fn is not None and self.functional_every
@@ -521,6 +660,9 @@ class SteadyBackwardEuler:
                 else:
                     rtol = self.lin.rtol_max
                 omega_cap = 0.2        # heavily damped recovery steps
+                if warm:
+                    du_prev = torch.zeros_like(u)   # drop the stale guess
+                U_defl = None          # drop the stale recycle space
                 kind = "blowup" if blown else "NaN residual"
                 print(f"  BE: {kind}, retrying from "
                       f"{'best' if blown else 'previous'} state at CFL "
@@ -539,6 +681,7 @@ class SteadyBackwardEuler:
                     cfl = max(cfl * 0.1, 1.0)
                     rtol = rtol_floor = self.lin.rtol
                     stall_count = 0
+                    U_defl = None      # drop the stale recycle space
                     print(f"  BE: frozen residual, dropping to CFL "
                           f"{cfl:.1f} with tight linear solves")
             else:

@@ -272,6 +272,8 @@ def test_cli_and_new_modules_import_without_jax():
         "import fvens_tpu_torch.mesh.ordering, fvens_tpu_torch.output\n"
         "import fvens_tpu_torch.cases.model_problems\n"
         "import fvens_tpu_torch.fv.diffusion, fvens_tpu_torch.solver.unsteady\n"
+        "import fvens_tpu_torch.solver.ilu, fvens_tpu_torch.solver.lines\n"
+        "import fvens_tpu_torch.solver.multigrid\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m.split('.')[0] in ('fvens_tpu', 'jax'))]\n"
         "assert not bad, bad\n"

@@ -212,25 +212,23 @@ def test_run_output_reports_the_entropy_error(blocked_everywhere):
     # the implicit starter, then an explicit main solve to 1e-2
     dict(main=dict(stepping="explicit", cfl_init=0.8, cfl_fin=0.8,
                    tol_abs=0.0, tol=1e-2, maxiter=5000)),
-    # what a .solverc's -pc_type gamg maps to: still refused
-    dict(linear=dict(pc="amg")),
+    # what a .solverc's -pc_type gamg maps to (refused before it was
+    # ported): the starter and 3 main steps under the AMG preconditioner
+    dict(linear=dict(pc="amg"), main=dict(maxiter=3)),
 ])
 def test_unported_case_options_refused(change):
     """Explicit pseudo-time phases of SteadyFlowCase (refused before they
     were ported) held to the JAX package's on cylinder_omesh(16, 8) in f64:
     the starter's steps, the main solve's steps and residual to 1e-9 and
     the state to 1e-9 of its largest entry (the explicit main solve takes
-    hundreds of steps). pc='amg' is still refused."""
+    hundreds of steps). The same for pc='amg' (the starter and 3 main
+    steps)."""
     cfg = bigmesh_case.case_config()
     for key, value in change.items():
         if isinstance(value, dict):
             value = dataclasses.replace(getattr(cfg, key), **value)
         cfg = dataclasses.replace(cfg, **{key: value})
     _, cm, u0 = bigmesh_case.build_case("cpu", 16, 8)
-    if cfg.linear.pc == "amg":
-        with pytest.raises(NotImplementedError):
-            SteadyFlowCase(cfg).run_output(cm, u0)
-        return
     cfg = _f64_config(cfg, cfg.main.maxiter)
     case = SteadyFlowCase(cfg)
     if cfg.main.stepping == "explicit":
@@ -308,3 +306,24 @@ def test_profile_step_takes_the_cylinder_case(capsys, blocked_everywhere):
                                        "mgs_pass_ms", "row_set_ms"))
     # on CPU tensors the wrappers take their twins and launch nothing
     assert trace["kernel_launches"] == trace["row_set_launches"] == 0
+
+
+@pytest.mark.parametrize("name", [n for n in bigmesh_case.OPTIONS
+                                  if n != "mf-jvp"])
+def test_profile_step_takes_each_option(name, capsys):
+    """cases/profile_step.py's cylinder-gather case with --pc set to each
+    preset of bigmesh_case.OPTIONS, at a small size on the CPU: one phases
+    and one trace line. (mf-jvp shares mf-fd's plumbing; torch.profiler
+    tracing its JVP on the CPU takes 18 s.)"""
+    from fvens_tpu_torch.cases import profile_step
+    profile_step.profile(torch.device("cpu"), (8, 4), 1, pallas=True,
+                         case="cylinder-gather", pc=name)
+    rec = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
+           for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith(("phases ", "trace "))}
+    phases = rec["phases"]
+    assert phases["option"] == name and phases["gmres_iters"] > 0
+    assert all(phases[k] > 0 for k in ("operators_ms", "pc_ms",
+                                       "matvec_ms", "step_ms"))
+    assert ("gmres_dr_recycled_iters" in phases) == (name == "bsgs-recycle")
+    assert rec["trace"]["kernel_launches"] == 0

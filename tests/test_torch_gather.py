@@ -13,7 +13,9 @@ default) against the JAX package, on the CPU at f64:
     the JAX package's runs in records/jax_gather_history.json: the same
     starter and main steps and Krylov iterations;
   - banded=True with pc="bcsgs", and banded=True on a mesh that is not
-    band-coverable, take the gather path.
+    band-coverable, take the gather path;
+  - ilu0, bline and amg apply as the JAX package's (in detail in
+    test_torch_ilu.py and test_torch_lines_mg.py).
 """
 
 import dataclasses
@@ -136,11 +138,33 @@ def test_colored_sgs_rewrites_the_padded_row_as_jax():
 
 
 def test_unknown_and_unported_preconditioners():
+    """An unknown preconditioner raises ValueError. ilu0, bline and amg,
+    refused before they were ported, apply as the JAX package's, each
+    with its per-mesh structure, on cylinder_omesh(24, 10): to 1e-12 of
+    max|z| (amg, whose V-cycle nests three levels and an LU solve, to
+    1e-11; tests/test_torch_ilu.py and test_torch_lines_mg.py hold each to
+    the JAX package in detail)."""
+    import fvens_tpu.solver.ilu as jilu
+    import fvens_tpu.solver.lines as jlines
+    import fvens_tpu.solver.multigrid as jmg
+    from fvens_tpu_torch.solver import ilu, lines, multigrid
     jm, tm = _meshes("cylinder_omesh(24, 10)")
-    tj = interop.jacobian_from_numpy(*_jacobian(jm, 0), device="cpu")
-    for kind in linear.UNPORTED_PRECONDITIONERS:
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            linear.make_preconditioner(tm, tj, kind)
+    D, N = _jacobian(jm, 0)
+    tj = interop.jacobian_from_numpy(D, N, device="cpu")
+    jj = jlinear.BlockJacobian(jnp.asarray(D), jnp.asarray(N))
+    v = np.random.default_rng(4).standard_normal((jm.NC, 4))
+    for kind, tol, jkw, tkw in (
+            ("ilu0", 1e-12, dict(ilu=jilu.ilu_structure(jm)),
+             dict(ilu=ilu.ilu_structure(tm))),
+            ("bline", 1e-12, dict(lines=jlines.lines_from_mesh(jm)),
+             dict(lines=lines.lines_from_mesh(tm))),
+            ("amg", 1e-11, dict(mg=jmg.build_hierarchy(jm)),
+             dict(mg=multigrid.build_hierarchy(tm)))):
+        want = np.asarray(jlinear.make_preconditioner(jm, jj, kind, 2,
+                                                      **jkw)(jnp.asarray(v)))
+        z = linear.make_preconditioner(tm, tj, kind, 2, **tkw)(
+            torch.from_numpy(v)).numpy()
+        assert np.abs(z - want).max() <= tol * np.abs(want).max(), kind
     with pytest.raises(ValueError):
         linear.make_preconditioner(tm, tj, "jacobi")
 

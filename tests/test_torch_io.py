@@ -10,10 +10,14 @@
     cases/ctrl/cylinder.ctrl on cylinder_omesh(24, 10) in f64 at CFL 50,
     the 3 steps after the checkpoint with equal Krylov iterations and
     residuals to 1e-9 relative;
-  - the JSONL logger writes the JAX package's keys.
+  - the JSONL logger writes the JAX package's keys;
+  - options files with -pc_type gamg (amg) and -matrix_free_jacobian (the
+    FD matvec) run the solver and the CLI, held to the JAX package's.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -213,18 +217,101 @@ def test_cylinder_solverc_is_bsgs_x6():
     assert (reorder, aniso) == ("", None)
 
 
+# the residual rule of a solverc option's history against the JAX
+# package's: (relative, floor as a fraction of the first residual); the FD
+# matvec amplifies the packages' rounding differences (its history parts
+# by 1e-6 to 1e-4 over the first steps, tests/test_torch_steady.py)
+SOLVERC_RES_RULE = {"gamg": (1e-9, 1e-12), "matrix-free": (1e-4, 1e-9)}
+# the main steps held step for step through the CLI (the FD shell's
+# history parts by about 3x a step, so over fewer)
+SOLVERC_CLI_STEPS = {"gamg": 10, "matrix-free": 4}
+
+
+def _same_rows(got, want, name, steps):
+    """(step, res, iters) rows: equal steps and Krylov iterations over the
+    first `steps`, residuals by SOLVERC_RES_RULE[name]."""
+    rtol, floor = SOLVERC_RES_RULE[name]
+    assert len(got) >= steps and len(want) >= steps
+    first = want[0][1]
+    for (step, res, iters), (tstep, tres, titers) in zip(want[:steps],
+                                                         got[:steps]):
+        assert tstep == step and titers == iters, (step, titers, iters)
+        assert abs(tres - res) <= rtol * res + floor * first, (step, tres,
+                                                               res)
+
+
 @pytest.mark.parametrize("name", ["gamg", "matrix-free"])
 def test_unported_solverc_options_reach_the_solver(tmp_path, name):
-    """gamg (-> amg) and the matrix-free shell are mapped as in the JAX
-    package and refused by the solver, not replaced."""
+    """gamg (-> amg) and the matrix-free shell (-> the FD matvec) are mapped
+    as in the JAX package and run in the solver: the first
+    SOLVERC_CLI_STEPS steps of the committed cylinder ctrl's main solve on
+    cylinder_omesh(8, 4) from free stream, in f64, held to the JAX
+    package's solve of the same options."""
     path = _file(tmp_path, "opts.solverc", SOLVERCS[name], None)
     lin, _, _ = tsolverc.load_solver_options(path)
-    cfg = tctrl.parse_control_file(os.path.join(CTRL_DIR, "cylinder.ctrl"))
+    jlin, _, _ = jsolverc.load_solver_options(path)
+    assert lin.pc == ("amg" if name == "gamg" else "bcsgs")
+    assert lin.matrix_free == lin.matrix_free_fd == (name == "matrix-free")
+    ctrl = os.path.join(CTRL_DIR, "cylinder.ctrl")
+    cfg = tctrl.parse_control_file(ctrl)
+    jcfg = jctrl.parse_control_file(ctrl)
+    steps = SOLVERC_CLI_STEPS[name]
+    main = dataclasses.replace(cfg.main, maxiter=steps)
+    jmain = dataclasses.replace(jcfg.main, maxiter=steps)
     tm = compile_mesh(tgen.cylinder_omesh(8, 4), cfg.bcs, device="cpu")
-    space = build_space(cfg)
-    with pytest.raises(NotImplementedError):
-        SteadyBackwardEuler(space, cfg.main, lin).solve(
-            tm, initial_state(space, tm))
+    jm = jax_compile_mesh(jgen.cylinder_omesh(8, 4), jcfg.bcs,
+                          dtype=jnp.float64)
+    space, jspace = build_space(cfg), jax_build_space(jcfg)
+    _, info = SteadyBackwardEuler(space, main, lin).solve(
+        tm, initial_state(space, tm), max_steps=steps)
+    rows = []
+
+    class Log:
+        def log(self, step, relres, res, lin_iters=0, **_):
+            rows.append((step, res, lin_iters))
+    try:
+        JaxBE(jspace, jmain, jlin).solve(
+            jm, jax_initial_state(jspace, jm).astype(jnp.float64),
+            logger=Log())
+    except JaxToleranceError:
+        pass
+    _same_rows([(h[0], h[2], h[4]) for h in info.history], rows, name,
+               steps)
+
+
+@pytest.mark.parametrize("name", ["gamg", "matrix-free"])
+def test_solverc_options_run_through_the_cli_as_jax(tmp_path, name):
+    """`python -m fvens_tpu_torch.cases.cli` (its main, in this process) on
+    the committed cylinder ctrl, its main tolerance 1e-6, with the gamg or
+    the matrix-free solverc on cylinder_omesh(12, 6): it converges, and its
+    JSONL history agrees with the JAX CLI's over the first
+    SOLVERC_CLI_STEPS main steps (equal Krylov iterations, residuals by
+    SOLVERC_RES_RULE)."""
+    from fvens_tpu.cases import cli as jax_cli
+    from fvens_tpu_torch.cases import cli
+    opts = _file(tmp_path, "opts.solverc", SOLVERCS[name], None)
+    with open(os.path.join(CTRL_DIR, "cylinder.ctrl")) as f:
+        text = f.read()
+    assert "tolerance      1e-10" in text
+    ctrl = tmp_path / "case.ctrl"
+    ctrl.write_text(text.replace("tolerance      1e-10",
+                                 "tolerance      1e-6"))
+    msh = str(tmp_path / "cyl.msh")
+    write_gmsh2(msh, tgen.cylinder_omesh(12, 6, stretch=1.15 ** (20 / 6)))
+    rows = {}
+    for key, main, dev in (("jax", jax_cli.main, ["--platform", "cpu"]),
+                           ("port", cli.main, ["--device", "cpu"])):
+        hist = str(tmp_path / f"{key}.jsonl")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main([str(ctrl), "--mesh_file", msh, "-options_file", opts,
+                       "--history", hist, "--log_every", "0"] + dev)
+        assert rc == 0, buf.getvalue()
+        with open(hist) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        rows[key] = [(r["step"], r["absres"], r["lin_iters"]) for r in recs]
+        assert recs[-1]["relres"] <= 1e-6
+    _same_rows(rows["port"], rows["jax"], name, SOLVERC_CLI_STEPS[name])
 
 
 @pytest.mark.parametrize("name", ["rcm", "line", "line_rcm"])

@@ -225,26 +225,96 @@ def test_profile_step_runs_on_the_host(capsys):
     assert trace["bsgs_launches"] == 0
 
 
+OPTION_STEPS = 10
+FD_AGREE_STEPS = 4
+UNPORTED_OPTIONS = ("pipeline", "device_steps", "bake_mesh")
+
+
+def _cylinder_main(change, nsteps):
+    """(port solver, port mesh, JAX solver, JAX mesh): the main solve of the
+    cylinder case (cases/bigmesh_case.py, gather bsgs x6) on
+    cylinder_omesh(16, 8) in f64, cut to `nsteps` steps, with the
+    LinearSolverConfig fields `change`."""
+    import dataclasses
+
+    from fvens_tpu.cases.casesolvers import SteadyFlowCase as JaxCase
+    from fvens_tpu.mesh import compile_mesh as jax_compile_mesh
+    from fvens_tpu.mesh.meshgen import cylinder_omesh
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.cases.casesolvers import SteadyFlowCase
+
+    from test_torch_residual import to_jax_config
+    cfg = bigmesh_case.case_config(**dict(bigmesh_case.GATHER_BSGS,
+                                          **change))
+    cfg = dataclasses.replace(
+        cfg, linear=dataclasses.replace(cfg.linear, mixed_precision=False),
+        main=dataclasses.replace(cfg.main, maxiter=nsteps))
+    _, cm, _ = bigmesh_case.build_case("cpu", 16, 8)
+    jcfg = to_jax_config(cfg)
+    jm = jax_compile_mesh(cylinder_omesh(16, 8, stretch=1.15 ** 2.5),
+                          jcfg.bcs, dtype=jnp.float64)
+    return (SteadyFlowCase(cfg)._make_solver(build_space(cfg), cfg.main),
+            cm, JaxCase(jcfg)._make_solver(jax_build_space(jcfg), jcfg.main),
+            jm)
+
+
 @pytest.mark.parametrize("change", [
     dict(pt=dict(pipeline=True)), dict(pt=dict(device_steps=4)),
     dict(pt=dict(bake_mesh=True)), dict(lin=dict(warm_start=True)),
-    dict(lin=dict(deflation_k=8)), dict(lin=dict(matrix_free=True)),
+    # the recycling gate open from the second step on
+    dict(lin=dict(deflation_k=8, deflation_start_relres=10.0)),
+    dict(lin=dict(matrix_free=True)),
     dict(lin=dict(pc="ilu0")), dict(lin=dict(pc="bline")),
     dict(lin=dict(pc="amg")),
     # what a .solverc's -matrix_free_jacobian maps to
     dict(lin=dict(matrix_free=True, matrix_free_fd=True, fd_eps=1e-7)),
 ])
 def test_unported_solver_options_refused(change):
-    _, tm, _, ts, _ = _case()
-    lin, pt = _configs(False, 2)
-    lin.update(change.get("lin", {}))
-    pt.update(change.get("pt", {}))
-    solver = SteadyBackwardEuler(ts, PseudoTimeConfig(**pt),
-                                 LinearSolverConfig(**lin),
-                                 NonlinearUpdateConfig("full"),
-                                 **change.get("solver", {}))
-    with pytest.raises(NotImplementedError):
-        solver.solve(tm, initial_state(ts, tm))
+    """The JAX package's other solver options. Pipelined and on-device
+    chunked stepping and baked-mesh programs are not ported and refused
+    with NotImplementedError. The others (warm start, GCRO-DR recycling,
+    the matrix-free JVP and FD matvecs, ilu0, bline, amg) run: the first
+    OPTION_STEPS steps of the cylinder case's main solve from free stream
+    on cylinder_omesh(16, 8) in f64, held to the JAX package's step for
+    step, Krylov iterations equal and residuals to 1e-9 relative with a
+    floor of 1e-12 of the first (the CLI tests' rule); with the FD matvec
+    its first FD_AGREE_STEPS steps, to 1e-4 relative with a floor of 1e-9
+    of the first (the difference quotient amplifies the packages' rounding
+    differences to about 3e-8 of the matvec, which the quasi-Newton steps
+    grow about 3x a step: 2e-6, 1.2e-5 and 2.7e-5 at steps 2-4, 6.9e-4 at
+    step 6, measured)."""
+    if set(change.get("pt", {})) & set(UNPORTED_OPTIONS):
+        _, tm, _, ts, _ = _case()
+        lin, pt = _configs(False, 2)
+        lin.update(change.get("lin", {}))
+        pt.update(change.get("pt", {}))
+        solver = SteadyBackwardEuler(ts, PseudoTimeConfig(**pt),
+                                     LinearSolverConfig(**lin),
+                                     NonlinearUpdateConfig("full"))
+        with pytest.raises(NotImplementedError, match="not ported"):
+            solver.solve(tm, initial_state(ts, tm))
+        return
+    solver, cm, jsolver, jm = _cylinder_main(change["lin"], OPTION_STEPS)
+    log = _History()
+    try:
+        jsolver.solve(jm, jax_initial_state(jsolver.space, jm).astype(
+            jnp.float64), logger=log)
+    except JaxToleranceError:
+        pass
+    u, info = solver.solve(cm, initial_state(solver.space, cm),
+                           max_steps=OPTION_STEPS)
+    assert bool(torch.isfinite(u).all())
+    fd = change["lin"].get("matrix_free_fd", False)
+    rtol, floor = (1e-4, 1e-9) if fd else (1e-9, 1e-12)
+    agree = FD_AGREE_STEPS if fd else OPTION_STEPS
+    assert len(log.rows) == len(info.history) == OPTION_STEPS
+    first = log.rows[0][1]
+    for (step, res, cfl, iters), h in zip(log.rows[:agree], info.history):
+        assert h[0] == step and h[4] == iters, (step, h[4], iters)
+        assert abs(h[2] - res) <= rtol * res + floor * first, (step, h[2],
+                                                                res)
+        # the CFL ramp follows the residual ratio
+        assert abs(h[3] - cfl) <= rtol * cfl
 
 
 def test_positivity_and_nan_guard_reported():
