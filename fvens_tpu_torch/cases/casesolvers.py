@@ -5,14 +5,16 @@ SteadyFlowCase: the first-order low-tolerance STARTER solve (:225-314,
 tolerance failures swallowed) followed by the second-order MAIN solve
 (:316-386), each implicit or explicit as its PseudoTimeConfig says, with
 checkpoints and functionals logged during an implicit main solve, and the
-output functionals (entropy error, CL, CDp, CDsf) of the result; and
+output functionals (entropy error, CL, CDp, CDsf) of the result;
 UnsteadyFlowCase: TVD-RK physical-time integration to the final time
-(:420-447).
+(:420-447); and DistributedFlowCase: the steady case domain-decomposed
+over ranks (the reference's `mpirun -n D fvens_steady`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -163,3 +165,121 @@ class UnsteadyFlowCase:
         return u, info, FlowSolutionFunctionals(mesh_size=mesh.h_param,
                                                 entropy=ent, CL=CL, CDp=CDp,
                                                 CDsf=CDsf)
+
+
+# the process group's timeout of DistributedFlowCase.run_output's ranks, s:
+# the longest a rank waits in one collective
+DIST_TIMEOUT = 600.0
+
+
+@dataclasses.dataclass
+class DistributedFlowCase:
+    """The steady case over D ranks: partition -> starter + main solve over
+    the ranks -> gather (the JAX package's DistributedFlowCase).
+
+    Role of the reference's `mpirun -n D fvens_steady` parallel runs
+    (tests/inv-2dcyl/CMakeLists.txt:31-37): the mesh is domain-decomposed
+    (dist/partition.py), each rank runs the implicit pseudo-time steps on
+    its part with halo exchanges inside the residual and the matvec and
+    reduced inner products in GMRES (dist/shard.py). As in the JAX
+    package, the starter runs implicit whatever its ctrl says; the main
+    solve takes the case's checkpoint file (rank 0 writes the stacked
+    state, every rank reads its slab back), and the functionals are
+    evaluated on the gathered state on rank 0.
+
+    run_output starts the ranks itself (dist/launch.py): `device` "cuda"
+    puts rank r on cuda:r over NCCL, "cpu" the ranks on the host over
+    gloo, one torch thread each. Inside a rank, rank_run_output does the
+    same work for that rank.
+    """
+    cfg: FlowCaseConfig
+    n_devices: int = 1
+    device: str = "cuda"
+    dtype: torch.dtype = torch.float64
+
+    def rank_solve(self, comm, md, log_every: int = 0, logger=None,
+                   part=None) -> tuple:
+        """This rank's solve: (ShardedFlow, its final slab, the main solve's
+        SolveInfo). The ShardedFlow is kept as `flow`, the starter's
+        SolveInfo and final slab as `starter_info` and `starter_u` (None
+        without a starter), the host seconds of the set-up (partition and
+        the part's mesh), the starter and the main solve as `times`.
+        `part`: a given partition (the global part of every cell)."""
+        from ..dist.partition import partition_mesh
+        from ..dist.shard import ShardedFlow
+        cfg = self.cfg
+        if comm.rank != 0:
+            log_every, logger = 0, None
+        t0 = time.perf_counter()
+        bundle = partition_mesh(md, cfg.bcs, comm.size, part=part)
+        flow = self.flow = ShardedFlow(build_space(cfg), bundle, comm,
+                                       self.dtype)
+        u = flow.initial_state()
+        t1 = time.perf_counter()
+        self.starter_info = self.starter_u = None
+        if cfg.use_starter and cfg.numerics.order2:
+            sf1 = ShardedFlow(build_space(cfg, order2=False), bundle, comm,
+                              self.dtype)
+            try:
+                u, self.starter_info = sf1.solve_implicit(
+                    cfg.init, lin=cfg.linear, nl=cfg.nl_update, u=u,
+                    log_every=log_every)
+            except ToleranceError as e:
+                # swallowed, as in SteadyFlowCase (casesolvers.cpp:294-299)
+                self.starter_info = e.info
+            self.starter_u = u
+        t2 = time.perf_counter()
+        u, info = flow.solve_implicit(
+            cfg.main, lin=cfg.linear, nl=cfg.nl_update, u=u,
+            log_every=log_every, logger=logger,
+            checkpoint_path=cfg.checkpoint_path or None,
+            checkpoint_every=cfg.checkpoint_every)
+        self.times = dict(setup_s=t1 - t0, starter_s=t2 - t1,
+                          main_s=time.perf_counter() - t2)
+        return flow, u, info
+
+    def rank_run_output(self, comm, md, log_every: int = 0, logger=None,
+                        mesh=None, part=None) -> tuple:
+        """This rank's solve (rank_solve), then the output functionals of
+        the gathered state: (u, SolveInfo, FlowSolutionFunctionals) on rank
+        0, with u the global state padded to the compiled mesh (`mesh`,
+        else md compiled on rank 0's device); (None, SolveInfo, None) on
+        the others."""
+        flow, u, info = self.rank_solve(comm, md, log_every, logger, part)
+        ug = flow.gather_solution(u)
+        if comm.rank != 0:
+            return None, info, None
+        if mesh is None:
+            mesh = compile_mesh(md, self.cfg.bcs, dtype=self.dtype,
+                                device=comm.device)
+        space = build_space(self.cfg)
+        u = initial_state(space, mesh)
+        u[:mesh.n_cells] = torch.as_tensor(ug, dtype=mesh.dtype,
+                                           device=mesh.device)
+        ent = entropy_error(space, mesh, u)
+        CL = CDp = CDsf = 0.0
+        if self.cfg.wall_markers:
+            _, (CL, CDp, CDsf) = surface_data(space, mesh, u,
+                                              self.cfg.wall_markers)
+        return u, info, FlowSolutionFunctionals(mesh_size=mesh.h_param,
+                                                entropy=ent, CL=CL, CDp=CDp,
+                                                CDsf=CDsf)
+
+    def run_output(self, md, log_every: int = 0) -> tuple:
+        """Start the ranks, solve, and return rank 0's (u as a NumPy array,
+        SolveInfo of the main solve, FlowSolutionFunctionals); the
+        starter's SolveInfo is kept as `starter_info`."""
+        from ..dist import launch
+        cpu = torch.device(self.device).type == "cpu"
+        u, info, fnls, self.starter_info = launch.run(
+            _run_output_rank, self.n_devices, args=(self, md, log_every),
+            device=self.device, timeout=DIST_TIMEOUT,
+            threads=1 if cpu else 0)[0]
+        return u, info, fnls
+
+
+def _run_output_rank(comm, case, md, log_every):
+    """A rank of DistributedFlowCase.run_output (importable, for spawn)."""
+    u, info, fnls = case.rank_run_output(comm, md, log_every)
+    return (None if u is None else u.cpu().numpy(), info, fnls,
+            case.starter_info)

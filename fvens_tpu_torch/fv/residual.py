@@ -67,11 +67,19 @@ class FlowFV:
         return get_flux(self.ncfg.flux)(self.phy, uL, uR, normals)
 
     # -- face states ------------------------------------------------------------
-    def face_states(self, mesh, u, uinf):
+    def face_states(self, mesh, u, uinf, exchange=None):
         """Returns (uL, uR, ug_cell, grads) with uL/uR (NF,4) conserved face
         states (flux-ready, incl. boundary ghosts on the right), ug_cell
         (NB,4) the conserved boundary ghost CELL states, and grads (NC,2,4)
-        primitive gradients (zeros for first order)."""
+        primitive gradients (zeros for first order).
+
+        `exchange`, when given, is a halo-exchange hook `(NC,...) -> (NC,...)`
+        filling this rank's halo cell slots from their owners
+        (dist/comm.py). It is applied to the cell gradients (the reference's
+        VecGhostUpdate on gradvec, flow_spatial.cpp:710-729), and to the
+        limited gradients of every reconstruction other than LINEAR; `u`
+        itself must arrive already exchanged. The distributed residual
+        (dist/shard.py) so runs this very pipeline."""
         nb = mesh.n_bfaces
         phy = self.phy
 
@@ -81,11 +89,18 @@ class FlowFV:
             ugp = phy.primitive_from_conserved(ug_cell)     # (NB,4)
 
             grads = self.gradients(mesh, up, ugp)
+            if exchange is not None:
+                # halo cells' gradients computed locally are wrong (their
+                # stencils are incomplete); overwrite them from the owner
+                grads = exchange(grads)
             rname = (self.ncfg.reconstruction
                      if self.ncfg.reconstruction != "NONE" else "LINEAR")
             lgrad = cell_limited_gradients(mesh, up, ugp, grads, rname,
                                            self.ncfg.limiter_param)
             if lgrad is not None:
+                if exchange is not None and rname != "LINEAR":
+                    # limiter/WENO weights read neighbour stencils too
+                    lgrad = exchange(lgrad)
                 wL, wR = extrapolate_faces(mesh, up, lgrad)
             else:
                 # face-based reconstruction (MUSCL-VanAlbada)
@@ -127,13 +142,17 @@ class FlowFV:
         return uL, uR, ug_cell, grads
 
     # -- the residual -----------------------------------------------------------
-    def compute_residual(self, mesh, u, gettimesteps: bool = True):
-        """rhs (NC,4) = - sum_faces flux*len (signed); dt (NC,) local steps."""
+    def compute_residual(self, mesh, u, gettimesteps: bool = True,
+                         exchange=None):
+        """rhs (NC,4) = - sum_faces flux*len (signed); dt (NC,) local steps.
+
+        `exchange`: the optional halo hook forwarded to face_states."""
         nb = mesh.n_bfaces
         phy = self.phy
         uinf = self.uinf(u.dtype, u.device)
 
-        uL, uR, ug_cell, grads = self.face_states(mesh, u, uinf)
+        uL, uR, ug_cell, grads = self.face_states(mesh, u, uinf,
+                                                  exchange=exchange)
 
         flux = self._inviscid_face_flux(uL, uR, mesh.f_normal)   # (NF,4)
 

@@ -41,7 +41,8 @@ import os
 import torch
 
 from .._build import CSRC_DIR, build_cuda_library
-from .banded import _block_mv, _norm_offsets, _shift, bsgs_sweeps
+from .banded import (_block_mv, _norm_offsets, _shift, bsgs_sweeps,
+                     rest_apply)
 
 V = 4                      # block size (NVARS)
 MAX_BANDS = 8              # the kernels' offset table size
@@ -524,14 +525,24 @@ def bsgs_bands(Dinv, DNbt, offsets):
             (DNbt.contiguous(), _norm_offsets(offsets, Dinv.shape[0])))
 
 
-def make_banded_matvec_kernel(D, Bt, offsets):
+def make_banded_matvec_kernel(D, Bt, offsets, bl=None, R=None):
     """Kernel form of banded.make_banded_matvec: the diagonal D joins as the
-    d = 0 band, so the whole matvec is one launch.
+    d = 0 band, so the bands are one launch; with K = MAX_BANDS bands (the
+    most a part of a partitioned mesh takes) the diagonal is a launch of
+    its own, the base of the bands' launch. A part's rest list
+    (R = banded.rest_blocks(bl, N)) is added after it in PyTorch.
     D (NC, V, V); Bt (K, V, V, NC) from banded_blocks."""
-    apply = BandedApply(*matvec_bands(D, Bt, offsets))
+    if len(offsets) < MAX_BANDS:
+        first, apply = None, BandedApply(*matvec_bands(D, Bt, offsets))
+    else:
+        first = BandedApply(D.permute(1, 2, 0)[None].contiguous(), (0,))
+        apply = BandedApply(Bt.contiguous(), _norm_offsets(offsets,
+                                                           D.shape[0]))
 
     def mv(x):
-        return apply(x.contiguous())
+        x = x.contiguous()
+        y = apply(x) if first is None else apply(x, first(x))
+        return y if R is None else rest_apply(bl, R, x, y)
     return mv
 
 
@@ -547,24 +558,31 @@ def make_banded_bsgs_kernel(Dinv, DNbt, offsets, sweeps: int, support=None):
     return pc
 
 
-def make_banded_bsgs_sequence(Dinv, DNbt, offsets, sweeps: int):
+def make_banded_bsgs_sequence(Dinv, DNbt, offsets, sweeps: int, bl=None,
+                              DNr=None):
     """The bsgs apply as 1 + sweeps banded_apply launches: D^-1 v is the
     d = 0-only launch; each sweep z' = D^-1 v - (D^-1 N) z_nbr is one launch
     with base = D^-1 v and sign = -1. The fused kernel's bit-for-bit
-    reference (off the solver's path)."""
+    reference, and the solver's bsgs apply on a part with a rest list
+    (DNr = banded.rest_dn_blocks(bl, Dinv, N)), whose blocks times the
+    previous iterate are subtracted after each sweep's launch."""
     (dinv, _), (dn, dms) = bsgs_bands(Dinv, DNbt, offsets)
-    return bsgs_sequence(dinv, dn, dms, sweeps)
+    rest = (None if DNr is None
+            else lambda z, acc: rest_apply(bl, DNr, z, acc, sign=-1.0))
+    return bsgs_sequence(dinv, dn, dms, sweeps, rest)
 
 
-def bsgs_sequence(dinv, dn, dms, sweeps: int):
+def bsgs_sequence(dinv, dn, dms, sweeps: int, rest=None):
     """make_banded_bsgs_sequence on the bands as BsgsApply takes them:
-    dinv (1, V, V, NC), dn (K, V, V, NC) and its shifts dms."""
+    dinv (1, V, V, NC), dn (K, V, V, NC) and its shifts dms; `rest(z, acc)`
+    as in banded.bsgs_sweeps."""
     first, sweep = BandedApply(dinv, (0,)), BandedApply(dn, dms, sign=-1.0)
 
     def pc(v):
         dv = first(v.contiguous())
         z = dv
         for _ in range(sweeps):
-            z = sweep(z, dv)
+            zn = sweep(z, dv)
+            z = zn if rest is None else rest(z, zn)
         return z
     return pc

@@ -20,6 +20,8 @@ package's GCRO-DR recycling GMRES, on the classic path at every size.
 
 from __future__ import annotations
 
+import functools
+
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -307,9 +309,11 @@ def _inv4(M):
     return adj / det[..., None, None]
 
 
-def _norm2(v):
-    """sqrt(sum v^2) on the device, the JAX package's norm arithmetic."""
-    return torch.sqrt(torch.sum(v * v))
+def _norm2(v, ar=None):
+    """sqrt(sum v^2) on the device, the JAX package's norm arithmetic; with
+    `ar` (an allreduce over the ranks) the sum is the global one."""
+    s = torch.sum(v * v)
+    return torch.sqrt(s if ar is None else ar(s))
 
 
 # Above this many vector elements gmres runs the blocked path by itself, as
@@ -372,7 +376,8 @@ def _least_squares(H, g, j, dev):
 
 
 def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
-          maxiter: int = 30, rtol: float = 1e-1, blocked: bool | None = None):
+          maxiter: int = 30, rtol: float = 1e-1, blocked: bool | None = None,
+          allreduce: Callable | None = None):
     """Right-preconditioned restarted flexible GMRES on (NC,V)-shaped
     vectors. Matches the reference's Krylov settings (FGMRES,
     alinalg.cpp). Returns (x, iterations, relres) with iterations a Python
@@ -397,6 +402,14 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
     Krylov dtype, so the O(m) scalar work costs no kernel launches. The
     blocked path's second-pass decision fetches the two norms in one more
     copy per iteration.
+
+    `allreduce` (a sum over the ranks, dist/comm.allreduce_sum) makes the
+    same code run distributed, each rank holding its slab of the vectors:
+    every inner product and norm is reduced before it is used or copied to
+    the host, so every host decision (Givens, convergence, restart skip)
+    is made from reduced values and all ranks take the same path. A
+    distributed solve runs the classic path, as in the JAX package
+    (`blocked` only without an axis).
     """
     if b.is_cuda:
         # the f32 Arnoldi products must run in full f32, never TF32
@@ -408,15 +421,20 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
     tiny = hdt(1e-300)          # 0 in f32, as the JAX package's weak scalar
     bf = b.reshape(n)
     if blocked is None:
-        blocked = n >= _BLOCKED_N_THRESHOLD
+        blocked = allreduce is None and n >= _BLOCKED_N_THRESHOLD
+    if blocked and allreduce is not None:
+        raise ValueError("a distributed gmres runs the classic path")
 
     mv = lambda v: matvec(v.reshape(shape)).reshape(n)
     pcf = lambda v: pc(v.reshape(shape)).reshape(n)
 
-    bnorm = hdt(_norm2(bf).item())
+    bnorm = hdt(_norm2(bf, allreduce).item())
     tol = hdt(rtol) * bnorm
     ncycles = max(1, -(-maxiter // restart))
+
     cycle = _cycle_blocked if blocked else _cycle_classic
+    if allreduce is not None:
+        cycle = functools.partial(_cycle_classic, ar=allreduce)
 
     x = x0.reshape(n).clone()
     iters = 0
@@ -429,12 +447,14 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
     return x.reshape(shape), iters, res / np.maximum(bnorm, tiny)
 
 
-def _cycle_classic(mv, pcf, bf, x, m, tol, hdt):
-    """One restart cycle of the classic CGS2 path. Returns (x, j, res)."""
+def _cycle_classic(mv, pcf, bf, x, m, tol, hdt, ar=None):
+    """One restart cycle of the classic CGS2 path, `ar` reducing every inner
+    product over the ranks (None: one device). Returns (x, j, res)."""
     n, dtype, dev = bf.numel(), bf.dtype, bf.device
     tiny = hdt(1e-300)
+    ar = ar or (lambda t: t)
     r = bf - mv(x)
-    beta_d = _norm2(r)
+    beta_d = _norm2(r, ar)
     V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
     Z = torch.zeros((m, n), dtype=dtype, device=dev)
     V[0] = r / torch.clamp_min(beta_d, 1e-300)
@@ -455,12 +475,12 @@ def _cycle_classic(mv, pcf, bf, x, m, tol, hdt):
         # classical Gram-Schmidt with one re-orthogonalization pass, over
         # the j+1 filled basis rows
         Vj = V[:j + 1]
-        h = Vj @ w
+        h = ar(Vj @ w)
         w = w - Vj.T @ h
-        h2 = Vj @ w
+        h2 = ar(Vj @ w)
         w = w - Vj.T @ h2
         h = h + h2
-        hn = _norm2(w)
+        hn = _norm2(w, ar)
         V[j + 1] = w / torch.clamp_min(hn, 1e-300)
         hcol = np.zeros(m + 1, hdt)
         hcol[:j + 2] = torch.cat([h, hn[None]]).cpu().numpy()
@@ -514,9 +534,28 @@ def _cycle_blocked(mv, pcf, bf, x, m, tol, hdt):
     return x, j, res
 
 
+def _cholqr(A, k: int, ar):
+    """Rows of A (k, n) -> (L^-1 A, L) with L = chol(ar(A A^T)): orthonormal
+    rows over the ranks from one reduced k x k Gram, the JAX package's
+    Cholesky-QR. The jittered Gram diagonal plays the QR path's
+    rank-deficiency clamp; a Gram that is not positive definite gives
+    L = I. L^-1 is formed from the identity: a triangular solve with n
+    right-hand sides is the slow form on the card (see gmres_dr)."""
+    G = ar(A @ A.T)
+    dtype, dev = A.dtype, A.device
+    eye = torch.eye(k, dtype=dtype, device=dev)
+    eps = (1e-12 * torch.trace(G) / max(k, 1)
+           + (1e-300 if dtype == torch.float64 else 1e-37))
+    L, info = torch.linalg.cholesky_ex(G + eps * eye)
+    if int(info) != 0 or not bool(torch.isfinite(L).all()):
+        L = eye
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return Linv @ A, L
+
+
 def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
              restart: int = 30, maxiter: int = 30, rtol: float = 1e-1,
-             allreduce: Callable = None, axis_name: str = None):
+             allreduce: Callable | None = None):
     """Deflated/recycling right-preconditioned GMRES (GCRO-DR class), the
     JAX package's gmres_dr on one device: carry k approximate slow
     directions of the slowly varying Jacobian across Newton steps and
@@ -541,12 +580,13 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
 
     U: (k,)+b.shape recycled directions from the previous solve, or None
     (first call: plain projected Arnoldi, harvest only). Returns (x, iters,
-    relres, U_new) with U_new shaped like U. The distributed form
-    (`allreduce`/`axis_name`, with Cholesky-QR) is not ported."""
-    if allreduce is not None or axis_name is not None:
-        raise NotImplementedError(
-            "not ported yet: gmres_dr across devices (allreduce/axis_name, "
-            "Cholesky-QR; ROADMAP queue 1 item 9)")
+    relres, U_new) with U_new shaped like U.
+
+    `allreduce`: as gmres's, each rank holding its slab of the vectors;
+    every projection (C r, C w, the Arnoldi products and norms) is reduced,
+    and the two tall-skinny QRs (A U^T at set-up and the harvest's
+    orthonormalization) become Cholesky-QR with a reduced k x k Gram
+    (_cholqr), as in the JAX package."""
     if b.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -558,8 +598,10 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     bf = b.reshape(n)
     mv = lambda v: matvec(v.reshape(shape)).reshape(n)
     pcf = lambda v: pc(v.reshape(shape)).reshape(n)
+    dist = allreduce is not None
+    ar = allreduce if dist else (lambda t: t)
 
-    bnorm = hdt(_norm2(bf).item())
+    bnorm = hdt(_norm2(bf, ar).item())
     tol = hdt(rtol) * bnorm
     m = restart
     ncycles = max(1, -(-maxiter // restart))
@@ -568,6 +610,11 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     if have_U:
         Ur = U.reshape(k, n).to(dtype)
         AU = torch.stack([mv(Ur[i]) for i in range(k)])     # (k, n)
+    if have_U and dist:
+        C, L = _cholqr(AU, k, ar)                   # C = R^-T (A U), L = R^T
+        eye = torch.eye(k, dtype=dtype, device=dev)
+        Ur = torch.linalg.solve_triangular(L, eye, upper=False) @ Ur
+    elif have_U:
         Q, R = torch.linalg.qr(AU.T)                        # A U^T = Q R
         # a rank-deficient recycle space: clamp tiny R diagonals so the
         # triangular solve stays finite (those directions then deflate
@@ -587,10 +634,10 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     def cycle(x):
         r = bf - mv(x)
         if have_U:
-            q = C @ r
+            q = ar(C @ r)
             x = x + Ur.T @ q
             r = r - C.T @ q
-        beta_d = _norm2(r)
+        beta_d = _norm2(r, ar)
         V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
         Z = torch.zeros((m, n), dtype=dtype, device=dev)
         B = torch.zeros((k, m), dtype=dtype, device=dev)
@@ -608,16 +655,16 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
             w = mv(z)
             Z[j] = z
             if have_U:
-                bcol = C @ w
+                bcol = ar(C @ w)
                 w = w - C.T @ bcol
                 B[:, j] = bcol
             Vj = V[:j + 1]
-            h = Vj @ w
+            h = ar(Vj @ w)
             w = w - Vj.T @ h
-            h2 = Vj @ w
+            h2 = ar(Vj @ w)
             w = w - Vj.T @ h2
             h = h + h2
-            hn = _norm2(w)
+            hn = _norm2(w, ar)
             V[j + 1] = w / torch.clamp_min(hn, 1e-300)
             hcol = np.zeros(m + 1, hdt)
             hcol[:j + 2] = torch.cat([h, hn[None]]).cpu().numpy()
@@ -667,6 +714,9 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     # directions collapse toward the same slow modes across Newton steps
     U_new = torch.where(torch.isfinite(U_new), U_new,
                         torch.zeros_like(U_new))
-    Qh, _ = torch.linalg.qr(U_new.T)                # (n, k) orthonormal
+    if dist:
+        U_new, _ = _cholqr(U_new, k, ar)
+    else:
+        U_new = torch.linalg.qr(U_new.T)[0].T       # (k, n) orthonormal
     return (x.reshape(shape), iters, res / np.maximum(bnorm, tiny),
-            Qh.T.reshape((k,) + shape))
+            U_new.reshape((k,) + shape))

@@ -53,6 +53,12 @@ the state and the controller every `checkpoint_every` accepted steps;
 `functional_fn` is evaluated on the new state every `functional_every`
 steps and its values join the logger's record, as in the JAX package.
 
+A rank of a distributed solve (dist/shard.py: DistributedBackwardEuler)
+inherits the host loop and these operators: the residual with its halo
+hook, a part's banded operators with its rest list (on the card K1 for the
+bands and, for bsgs, K1's seven-launch sequence, the rest added after each
+launch), and the checkpoint's state from all ranks.
+
 Not ported, and refused with NotImplementedError: on-device chunked
 stepping (device_steps), pipelined stepping and baked-mesh programs.
 """
@@ -73,8 +79,10 @@ from ..io_config.checkpoint import load_checkpoint, save_checkpoint
 from ..io_config.logs import ConvergenceLogger
 from . import jacobian as jacmod
 from .banded import (BandedStructure, banded_blocks, banded_dn_blocks,
-                     banded_structure, make_banded_bsgs, make_banded_matvec)
+                     banded_structure, make_banded_bsgs, make_banded_matvec,
+                     rest_blocks, rest_dn_blocks)
 from .banded_kernels import (make_banded_bsgs_kernel,
+                             make_banded_bsgs_sequence,
                              make_banded_matvec_kernel)
 from .ilu import ilu_structure
 from .linear import (BlockJacobian, block_jacobi_inverse, gmres, gmres_dr,
@@ -119,13 +127,18 @@ class BandedOperators:
     Dinv: torch.Tensor     # (NC, V, V) their inverses
     Bt: torch.Tensor       # (K, V, V, NC) band blocks of N
     DNbt: torch.Tensor     # (K, V, V, NC) band blocks of D^-1 N
+    R: Optional[torch.Tensor] = None     # (NR, V, V) rest blocks of N
+    DNr: Optional[torch.Tensor] = None   # (NR, V, V) rest blocks of D^-1 N
 
 
 def banded_operators(bl, jac) -> BandedOperators:
-    """The banded operators of a BlockJacobian on a band-covered mesh."""
+    """The banded operators of a BlockJacobian on a band-covered mesh, or
+    on a part of a partitioned mesh with its rest list."""
     Dinv = block_jacobi_inverse(jac.D)
     return BandedOperators(bl, jac.D, Dinv, banded_blocks(bl, jac.N),
-                           banded_dn_blocks(bl, Dinv, jac.N))
+                           banded_dn_blocks(bl, Dinv, jac.N),
+                           rest_blocks(bl, jac.N),
+                           rest_dn_blocks(bl, Dinv, jac.N))
 
 
 @dataclasses.dataclass
@@ -141,6 +154,14 @@ class GatherOperators:
     mg: object = None      # solver/multigrid.py MGHierarchy (pc='amg')
     ilu: object = None     # solver/ilu.py ILUStructure (pc='ilu0')
     matvec: Optional[object] = None
+
+
+def _residual(space, mesh, u, gettimesteps, exchange=None):
+    """space.compute_residual, with the halo hook where one is given (the
+    flow residual takes it; a distributed solve passes one)."""
+    if exchange is None:
+        return space.compute_residual(mesh, u, gettimesteps)
+    return space.compute_residual(mesh, u, gettimesteps, exchange=exchange)
 
 
 def residual_norm(mesh, rhs):
@@ -332,7 +353,8 @@ class SteadyBackwardEuler:
         plain-PyTorch path."""
         return bool(self.lin.pallas) and x.is_cuda
 
-    def step_operators(self, mesh, u, cfl, lmesh=None, bl=None):
+    def step_operators(self, mesh, u, cfl, lmesh=None, bl=None,
+                       exchange=None, allreduce=None):
         """The residual at state u and the Krylov system of one implicit
         step at `cfl`: (rhs, lrhs, ops) with rhs at u's dtype, lrhs and ops
         at the Krylov precision, and ops BandedOperators where the banded
@@ -343,10 +365,14 @@ class SteadyBackwardEuler:
         `lmesh` (optional): precomputed f32 mesh for the mixed-precision
         path (LinearSolverConfig.mixed_precision): the Newton DIRECTION
         tolerates f32 (it is just another inexactness), while the
-        residual/update stay f64 so the outer iteration can reach 1e-10."""
+        residual/update stay f64 so the outer iteration can reach 1e-10.
+
+        `exchange` and `allreduce` (a rank of a distributed solve,
+        dist/shard.py): the residual's halo hook and the sum over the
+        ranks, which the matrix-free matvec uses too."""
         if bl is None:
             bl = self._banded(mesh)
-        rhs, dt = self.space.compute_residual(mesh, u, True)
+        rhs, dt = _residual(self.space, mesh, u, True, exchange)
 
         mixed = self.lin.mixed_precision and u.dtype == torch.float64
         if mixed:
@@ -364,7 +390,7 @@ class SteadyBackwardEuler:
                 and self.lin.pc in ("bjacobi", "bsgs")):
             return rhs, lrhs, banded_operators(bl, jac)
         mv = (self._matrix_free_matvec(mesh, lmesh, u, lu, rhs, dt, ldt,
-                                       cfl, lrhs.dtype)
+                                       cfl, lrhs.dtype, exchange, allreduce)
               if self.lin.matrix_free else None)
         return rhs, lrhs, self._gather_operators(mesh, lmesh, jac, mv)
 
@@ -376,7 +402,7 @@ class SteadyBackwardEuler:
                                matvec=matvec)
 
     def _matrix_free_matvec(self, mesh, lmesh, u, lu, rhs, dt, ldt, cfl,
-                            kdt):
+                            kdt, exchange=None, allreduce=None):
         """The matrix-free Krylov matvec of the JAX package's step, its
         result at the Krylov dtype `kdt`:
 
@@ -392,7 +418,12 @@ class SteadyBackwardEuler:
         perturbation's floor 1e-300 is 0, and GMRES's first product, with
         x = 0, would divide by it), and its product lands in the f32 basis,
         so it is cast there. The JAX package cannot run this case: its f64
-        product enters its f32 GMRES loop, which refuses the carry."""
+        product enters its f32 GMRES loop, which refuses the carry.
+
+        On a rank of a distributed solve the caller exchanges the Krylov
+        vector's halo before the product; the residuals run with the
+        `exchange` hook, and the FD perturbation takes the global norm of
+        the owned entries (`allreduce`)."""
         space = self.space
         if self.lin.matrix_free_fd:
             diag = (mesh.area / (cfl * dt) * mesh.cell_mask)[:, None]
@@ -400,15 +431,19 @@ class SteadyBackwardEuler:
 
             def matvec(x):
                 x = x.to(u.dtype)
-                p = eps0 / torch.clamp_min(torch.sqrt((x * x).sum()),
-                                           1e-300)
-                rp = space.compute_residual(mesh, u + p * x, False)[0]
+                if allreduce is None:
+                    nrm2 = (x * x).sum()
+                else:
+                    nrm2 = allreduce(((x * mesh.cell_mask[:, None]) ** 2)
+                                     .sum())
+                p = eps0 / torch.clamp_min(torch.sqrt(nrm2), 1e-300)
+                rp = _residual(space, mesh, u + p * x, False, exchange)[0]
                 return (diag * x - (rp - rhs) / p).to(kdt)
             return matvec
         diag = (lmesh.area / (cfl * ldt) * lmesh.cell_mask)[:, None]
 
         def residual(v):
-            return space.compute_residual(lmesh, v, False)[0]
+            return _residual(space, lmesh, v, False, exchange)[0]
 
         def matvec(x):
             _, tang = torch.func.jvp(residual, (lu,), (x,))
@@ -418,8 +453,9 @@ class SteadyBackwardEuler:
     def _linear_operators(self, ops):
         """(matvec, pc): on the gather path the slot matvec and
         make_preconditioner; on the banded path the CUDA kernels' (the
-        matvec and the fused bsgs apply) or the plain twins', with bjacobi
-        the plain D^-1 v contraction on both."""
+        matvec and the fused bsgs apply; with a rest list the matvec plus
+        the rest, and the seven-launch sequence plus the rest) or the plain
+        twins', with bjacobi the plain D^-1 v contraction on both."""
         lin = self.lin
         if isinstance(ops, GatherOperators):
             mv = (ops.matvec if ops.matvec is not None
@@ -434,19 +470,21 @@ class SteadyBackwardEuler:
                 f"not ported yet: the banded kernels with {ops.D.shape[-1]}x"
                 f"{ops.D.shape[-1]} blocks (they take 4x4; ROADMAP queue 1 "
                 "item 11); set LinearSolverConfig.banded=False")
-        if kernel:
-            mv = make_banded_matvec_kernel(ops.D, ops.Bt, ops.bl.offsets)
-        else:
-            mv = make_banded_matvec(ops.D, ops.Bt, ops.bl.offsets)
+        bl = ops.bl
+        make_mv = make_banded_matvec_kernel if kernel else make_banded_matvec
+        mv = make_mv(ops.D, ops.Bt, bl.offsets, bl, ops.R)
         if lin.pc == "bjacobi":
             Dinv = ops.Dinv
             return mv, lambda v: torch.einsum("cij,cj->ci", Dinv, v)
-        if kernel:
+        if kernel and ops.DNr is None:
             return mv, make_banded_bsgs_kernel(ops.Dinv, ops.DNbt,
-                                               ops.bl.offsets, lin.pc_sweeps,
-                                               ops.bl.support)
-        return mv, make_banded_bsgs(ops.Dinv, ops.DNbt, ops.bl.offsets,
-                                    lin.pc_sweeps)
+                                               bl.offsets, lin.pc_sweeps,
+                                               bl.support)
+        # a part with a rest list: on the card the seven-launch sequence
+        # with the rest blocks after each launch
+        make_pc = make_banded_bsgs_sequence if kernel else make_banded_bsgs
+        return mv, make_pc(ops.Dinv, ops.DNbt, bl.offsets, lin.pc_sweeps,
+                           bl, ops.DNr)
 
     def _step(self, mesh, u, cfl, rtol, omega_cap=1.0, lmesh=None, bl=None,
               du0=None, U0=None, defl=False, return_carry=False):
@@ -481,7 +519,25 @@ class SteadyBackwardEuler:
                                       restart=self.lin.restart,
                                       maxiter=self.lin.maxiter, rtol=rtol)
         du = du.to(u.dtype)
+        unew = u + self._update_factor(u, du, omega_cap)[:, None] * du
+        # poison the reported norm if ANY residual/state component is
+        # non-finite (the energy norm alone can stay finite while momentum
+        # components are NaN, silently freezing the solve)
+        ok = (torch.isfinite(rhs).all() & torch.isfinite(unew).all()
+              & torch.isfinite(du).all())
+        res = torch.where(ok, residual_norm(mesh, rhs),
+                          torch.full((), float("nan"), dtype=rhs.dtype,
+                                     device=rhs.device)).item()
+        if not np.isfinite(relres):
+            res = float("nan")
+        if return_carry:
+            return unew, res, iters, du, U
+        return unew, res, iters
 
+    def _update_factor(self, u, du, omega_cap):
+        """The per-cell factor omega of the update u + omega du: the
+        nonlinear update scheme's, capped at omega_cap, then scaled by a
+        per-cell positivity line search for the flow equations."""
         phy = self.space.phy            # None for DiffusionFV
         omega = get_update_scheme(self.nl.scheme)(phy, u, du,
                                                   self.nl.min_factor)
@@ -504,20 +560,16 @@ class SteadyBackwardEuler:
             for om in (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125):
                 scale = torch.where((scale == 0.0) & positive(om), om, scale)
             omega = omega * scale
-        unew = u + omega[:, None] * du
-        # poison the reported norm if ANY residual/state component is
-        # non-finite (the energy norm alone can stay finite while momentum
-        # components are NaN, silently freezing the solve)
-        ok = (torch.isfinite(rhs).all() & torch.isfinite(unew).all()
-              & torch.isfinite(du).all())
-        res = torch.where(ok, residual_norm(mesh, rhs),
-                          torch.full((), float("nan"), dtype=rhs.dtype,
-                                     device=rhs.device)).item()
-        if not np.isfinite(relres):
-            res = float("nan")
-        if return_carry:
-            return unew, res, iters, du, U
-        return unew, res, iters
+        return omega
+
+    def _checkpoint_state(self, u):
+        """The array a checkpoint stores for state u (None: this process
+        writes no checkpoint)."""
+        return u
+
+    def _resume_state(self, saved):
+        """This solver's state from a checkpoint's stored array."""
+        return saved
 
     def solve(self, mesh, u0, log_every: int = 0, logger=None,
               max_steps: Optional[int] = None) -> tuple:
@@ -555,8 +607,8 @@ class SteadyBackwardEuler:
         if self.checkpoint_path:
             if os.path.exists(self.checkpoint_path):
                 ck = load_checkpoint(self.checkpoint_path)
-                u = torch.as_tensor(ck["u"], dtype=u0.dtype,
-                                    device=u0.device)
+                u = torch.as_tensor(self._resume_state(ck["u"]),
+                                    dtype=u0.dtype, device=u0.device)
                 step = ck["step"]
                 cfl = ck["cfl"] or cfl
                 res = resold = ck["res"] or 1.0
@@ -696,13 +748,15 @@ class SteadyBackwardEuler:
                            cfl=cfl, **fnl_log)
             if (self.checkpoint_path and self.checkpoint_every
                     and step % self.checkpoint_every == 0):
-                save_checkpoint(self.checkpoint_path, u, step=step, cfl=cfl,
-                                res=res, initres=initres,
-                                extra={"rtol": rtol,
-                                       "rtol_floor": rtol_floor,
-                                       "raise_relres": raise_relres,
-                                       "resold": resold,
-                                       "cfl_cap": min(cfl_cap, 1e300)})
+                state = self._checkpoint_state(u)
+                if state is not None:
+                    save_checkpoint(self.checkpoint_path, state, step=step,
+                                    cfl=cfl, res=res, initres=initres,
+                                    extra={"rtol": rtol,
+                                           "rtol_floor": rtol_floor,
+                                           "raise_relres": raise_relres,
+                                           "resold": resold,
+                                           "cfl_cap": min(cfl_cap, 1e300)})
             if (res / initres <= self.cfg.tol
                     or (self.cfg.tol_abs and res <= self.cfg.tol_abs)):
                 break

@@ -20,10 +20,11 @@ output. They must give:
   - VTU, surface and volume arrays to 1e-10.
 
 The port's rerun with the same --checkpoint resumes from it. A missing mesh
-exits 1; --devices and --pipeline are refused; unsteady and explicit
-control files print what the JAX CLI prints; the CLI module imports with
-jax blocked. Also: the perftest breakdown and
-the torch twin of __graft_entry__.entry().
+exits 1; --pipeline is refused; --devices 2 --device cpu (two gloo ranks)
+runs what the JAX CLI's --devices 2 runs (DistributedFlowCase.run_output
+on two virtual CPU devices); unsteady and explicit control files print
+what the JAX CLI prints; the CLI module imports with jax blocked. Also:
+the perftest breakdown and the torch twin of __graft_entry__.entry().
 """
 
 import contextlib
@@ -215,22 +216,61 @@ def test_cli_needs_the_card_unless_told(runs, capsys):
 @pytest.mark.parametrize("refusal", ["unsteady", "devices", "pipeline",
                                      "explicit"])
 def test_cli_refuses_unported_paths(runs, refusal):
-    """--devices and --pipeline are refused. Unsteady and explicit control
-    files, refused until their steppers were ported, now run and print
-    what the JAX CLI prints on the same files: the cylinder ctrl made
-    unsteady (TVD-RK2 at physical CFL 0.4 to t = 0.05) and made explicit
-    (forward Euler at CFL 0.8: the starter to its 1e-1, the main solve to
-    half its first residual): the same steps, and the functionals to
-    1e-10 (CL, zero by symmetry, to 1e-12 absolute)."""
+    """--pipeline is refused. --devices, refused until the distributed
+    path was ported, and unsteady and explicit control files, refused
+    until their steppers were, now run and print what the JAX CLI prints
+    on the same files:
+      - the cylinder ctrl and solverc (main to 1e-12) with --devices 2: the
+        port's two gloo ranks (--device cpu; the CLI run in a subprocess,
+        whose ranks write to its standard output) against the JAX CLI's
+        DistributedFlowCase.run_output on two virtual CPU devices: equal
+        starter steps, the first AGREE main steps step for step (equal
+        Krylov iterations, residuals to 1e-9 relative with a floor of
+        1e-12 of the first), totals within 10%, functionals to 1e-8 (CL,
+        zero by symmetry, to 1e-12 absolute);
+      - the cylinder ctrl made unsteady (TVD-RK2 at physical CFL 0.4 to
+        t = 0.05) and made explicit (forward Euler at CFL 0.8: the starter
+        to its 1e-1, the main solve to half its first residual): the same
+        steps, and the functionals to 1e-10."""
     tmp, msh = runs["tmp"], runs["msh"]
-    argv = ["--mesh_file", msh, "--log_every", "0"]
-    if refusal in ("devices", "pipeline"):
-        ctrl = _ctrl(tmp)
-        argv += ["--devices", "2"] if refusal == "devices" else ["--pipeline"]
-        match = "queue 1 item 9" if refusal == "devices" else "pipelined"
-        with pytest.raises(NotImplementedError, match=match):
-            _run(cli.main, [ctrl] + argv + ["--device", "cpu"])
+    argv = ["--mesh_file", msh, "--log_every", "1"]
+    if refusal == "pipeline":
+        with pytest.raises(NotImplementedError, match="pipelined"):
+            _run(cli.main, [_ctrl(tmp)] + argv + ["--pipeline", "--device",
+                                                  "cpu"])
         return
+    if refusal == "devices":
+        ctrl = _ctrl(tmp)
+        argv += ["-options_file", SOLVERC, "--devices", "2", "--history"]
+        hist = {k: os.path.join(tmp, f"devices_{k}.jsonl")
+                for k in ("jax", "port")}
+        rc, jtext = _run(jax_cli.main, [ctrl] + argv + [
+            hist["jax"], "--platform", "cpu"])
+        assert rc == 0, jtext
+        proc = subprocess.run(
+            [sys.executable, "-m", "fvens_tpu_torch.cases.cli", ctrl] + argv
+            + [hist["port"], "--device", "cpu"], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert "2 ranks (gloo)" in proc.stdout
+        j, t = parse_cli_output(jtext), parse_cli_output(proc.stdout)
+        starter = re.compile(r"^\s*dBE \|\s+\d+ \|[^|]+\|[^|]+\|\s+(\d+) \|",
+                             re.M)
+        assert starter.findall(proc.stdout) == starter.findall(jtext) != []
+        jr, tr = _jsonl(hist["jax"]), _jsonl(hist["port"])
+        first = jr[0]["absres"]
+        for a, b in zip(tr[:AGREE], jr[:AGREE]):
+            assert a["lin_iters"] == b["lin_iters"], a["step"]
+            assert abs(a["absres"] - b["absres"]) \
+                <= 1e-9 * b["absres"] + 1e-12 * first, a["step"]
+        for key in ("main_steps", "main_iters"):
+            assert abs(t[key] - j[key]) <= 0.1 * j[key], key
+        assert (t["main_steps"], t["main_iters"]) == (
+            len(tr), sum(r["lin_iters"] for r in tr))
+        for k in FUNCTIONALS:
+            assert abs(t[k] - j[k]) <= max(1e-8 * abs(j[k]), 1e-12), k
+        return
+    argv[-1] = "0"
     if refusal == "unsteady":
         ctrl = _ctrl(tmp, **{"simulation_type  steady":
                              "simulation_type  unsteady\n\tfinal_time 0.05"

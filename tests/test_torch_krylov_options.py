@@ -177,10 +177,34 @@ def test_gmres_dr_recycling_cuts_iterations():
 
 
 def test_gmres_dr_refuses_the_distributed_form():
-    b = torch.ones(4, 4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        linear.gmres_dr(lambda x: x, b, b, lambda x: x,
-                        allreduce=lambda x: x)
+    """The distributed form, refused until the distributed path was
+    ported, now runs: with a one-rank allreduce (the identity) gmres_dr
+    takes the distributed arithmetic (reduced projections, Cholesky-QR of
+    a reduced Gram) and must give the single-device solve's x to 1e-10 of
+    its largest entry with equal iterations, and a recycled space of the
+    same span (projectors to 1e-5, as the JAX comparisons above) whose
+    Gram is I to 1e-6, first call and recycling call alike (the
+    distributed form against the JAX package's on ranks:
+    tests/test_torch_dist_solve.py)."""
+    A, b, _ = _dense_system(seed=3)
+    At = torch.from_numpy(A)
+    mv = lambda x: (At @ x.reshape(-1)).reshape(x.shape)
+    ident = lambda z: z
+    bt = torch.from_numpy(b.copy())
+    kw = dict(k=4, restart=10, maxiter=30, rtol=1e-9)
+    U = Ud = None
+    for _ in range(2):
+        x, it, _, U = linear.gmres_dr(mv, bt, torch.zeros_like(bt), ident,
+                                      U=U, **kw)
+        xd, itd, _, Ud = linear.gmres_dr(mv, bt, torch.zeros_like(bt),
+                                         ident, U=Ud, allreduce=ident, **kw)
+        assert itd == it
+        assert np.abs((xd - x).numpy()).max() \
+            <= 1e-10 * np.abs(x.numpy()).max()
+        flat = Ud.reshape(4, -1).numpy()
+        np.testing.assert_allclose(flat @ flat.T, np.eye(4), atol=1e-6)
+        np.testing.assert_allclose(_projector(Ud.numpy()),
+                                   _projector(U.numpy()), atol=1e-5)
 
 
 def _cyl_solvers(lin, mixed=False):
