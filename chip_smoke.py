@@ -31,7 +31,8 @@ wrappers with the launch counts zeroed just before it and read just after:
     through the CLI at 640x320 (gather bsgs x6, row_set); the banded
     cylinder with Venkatakrishnan (K1, K1b, K2); the explicit cylinder
     through the CLI; TVD-RK3 on a 512x512 periodic vortex box; the heat
-    equation on a 512x512 square (V = 1 blocks, row_set);
+    equation on a 512x512 square (V = 1 blocks) on the gather path
+    (row_set) and banded (K1 and K1b with 1x1 blocks, row_set);
   - the other solver options at 640x320 on the gather path: the block
     ILU0, the aggregation multigrid, the line smoother, the matrix-free
     JVP and FD matvecs, and warm start with GCRO-DR recycling (row_set
@@ -46,7 +47,9 @@ In order:
      "ptxas" JSON line per library);
   3. holds each kernel against its plain PyTorch twin: banded_apply on the
      real step-0 operators of both paths (matvec K=7, D^-1 v K=1, bsgs sweep
-     K=6) and the fused bsgs apply on the same operators, at f32 (max abs
+     K=6) and of the banded 512x512 heat equation (1x1 blocks: matvec K=5,
+     D^-1 v K=1, sweep K=4) and the fused bsgs apply on the same operators,
+     at f32 (max abs
      error <= 1e-5 max|y|) and f64 (<= 1e-12 max|y|), the fused apply also
      equal value for value to the seven-launch banded_apply sequence; and
      row_set at n = 819,200 (the 640x320 basis), 262,528 (where the TPU
@@ -57,7 +60,8 @@ In order:
      (CUDA events, median of TIMED_RUNS), its device time (device_ms: calls
      queued back to back behind a device-side sleep), the twin, the fused
      apply's sequence, and the matvec as one torch.sparse_bsr_tensor product
-     (library_ms; never on the path), and computes each kernel's bound; the
+     (torch.sparse_csr_tensor at 1x1 blocks; library_ms; never on the
+     path), and computes each kernel's bound; the
      fused apply also phase by phase (profile_step.bsgs_phase_times: D^-1 v
      with the first sweep, and a later sweep, beside the sequence's, with
      the solver's plan and with other shared memory), and the fixed cost of
@@ -164,13 +168,19 @@ In order:
      at least 4x below the VORTEX_COARSE run's; at 64x64 to t = 0.5 the
      record's steps, t to 1e-12 and state to 1e-10;
  19. E: the heat equation (DiffusionFV, V = 1) on unit_square(n) quads at
-     HEAT_N, implicit on the gather path to 1e-9: converged, row_set once
-     per Krylov iteration at 512x512 (blocked GMRES at n = 262,144), L2
-     error order in [1.9, 2.1].
+     HEAT_N, implicit to 1e-9, on the gather path (bcsgs x3) and banded
+     (HEAT_BANDED, bsgs x6: K1 and the fused K1b with 1x1 blocks):
+     converged, row_set once per Krylov iteration at 512x512 (blocked GMRES
+     at n = 262,144), K1 once per Krylov iteration and once per GMRES
+     cycle, K1b once per Krylov iteration (and once per cycle, blocked),
+     L2 error order in [1.9, 2.1] on each path; the banded solves take the
+     steps of the JAX package's CPU run (JAX_HEAT_BANDED_RECORD), its
+     Krylov iterations within 1 and its L2 error to 1e-8 relative.
 
 Each path of steps 15-19 prints one line (naca cli, limited banded,
-explicit cli, vortex, heat) with its steps, Krylov iterations, launches,
-wall time and rates, and the card's name and power limit.
+explicit cli, vortex, heat, heat banded) with its steps, Krylov
+iterations, launches, wall time and rates, and the card's name and power
+limit.
 
  20. F: the JAX package's other solver options on the gather path
      (cases/bigmesh_case.OPTIONS) at OPTIONS_MESH, 640x320, mixed
@@ -204,12 +214,15 @@ wall time and rates, and the card's name and power limit.
      within 10%, the functionals to 1e-8, K1 and the fused K1b (one part
      has no rest list) at least once per Krylov iteration and equal to
      their twins on the part's operators, its wall split into set-up,
-     starter, main solve and gather; then the CLI with --devices 1 (a
-     subprocess: its rank writes to the subprocess's output) on the
-     committed cylinder ctrl at CLI_MESH (640x320) with every output, and
-     again resuming, its functionals within 1e-8 of step 12's one-device
-     CLI (CL absolutely). G2 and G3, for D in DIST_PARTS: D ranks sharing the
-     card over gloo, host-staged (G2's times are no scaling result): the
+     starter, main solve and gather (the one-device solve, and G2's
+     one-device forms, run in this process while the rank does). G2 and
+     G3, for D in DIST_PARTS: D ranks sharing the card over gloo,
+     host-staged (G2's times are no scaling result), and beside them G1's
+     CLI with --devices 1 (subprocesses: its rank writes to the
+     subprocess's output) on the committed cylinder ctrl at DIST_CLI_MESH
+     (160x80) with every output, and again resuming, its functionals
+     within 1e-8 of step 13's one-device CLI at that mesh (CL
+     absolutely). The worlds of each D run at once. G2: the
      sharded residual at a seeded state and one bjacobi step at rtol 1e-10
      equal to the one-device ones (tests/test_dist.py's tolerances), each
      part's K1 + rest list and bsgs sequence + rest list equal to their
@@ -340,6 +353,9 @@ VORTEX_N = 512                   # phase D: 262,144 cells
 VORTEX_COARSE = 128
 VORTEX_T = 1.0
 HEAT_N = (256, 512)              # phase E: unit_square(n) quads
+HEAT_BANDED = dict(banded=True, pc="bsgs", pc_sweeps=6)  # and through K1,
+#   K1b (1x1 blocks) and K2, held to:
+JAX_HEAT_BANDED_RECORD = "records/jax_heat_banded_history.json"
 CARD = ""                        # nvidia-smi's name and power limit
 
 # The small solves of step 9: the bench physics and solver on
@@ -459,6 +475,15 @@ def cylinder_record(mesh: str, record: str = JAX_BIGMESH_RECORD,
                   key=lambda r: not r["blocked_gmres"])
 
 
+# ptxas's report of the 4x4-block instantiations before the kernels took
+# V as a template argument (PERF_APPENDIX.md, PR 7, call 17), printed
+# beside this build's
+PTXAS_BEFORE_V4 = {
+    "banded_bsgs": "64 registers each; f32 no spills, f64 8-16 bytes of "
+                   "spill stores at K 5-8",
+}
+
+
 def build_kernels():
     """The three CUDA libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -477,25 +502,29 @@ def build_kernels():
     for name, build in builds.items():
         print(f"  {name}: nvcc {build.seconds:.2f} s -> "
               f"{os.path.relpath(build.path)}", flush=True)
-        print("ptxas", json.dumps(dict(library=name,
-                                       kernels=ptxas_summary(build.log))),
-              flush=True)
+        print("ptxas", json.dumps(dict(
+            library=name, kernels=ptxas_summary(build.log),
+            v4_before=PTXAS_BEFORE_V4.get(name))), flush=True)
 
 
 def ptxas_summary(log: str) -> list:
-    """Per kernel in nvcc's -Xptxas -v output: its name (the fused bsgs
-    kernel's as dtype and K bands), its registers, stack frame and spill
-    bytes."""
+    """Per kernel in nvcc's -Xptxas -v output: its name (the banded
+    kernels' as dtype, block size V and, for the fused bsgs kernel, K
+    bands), its registers, stack frame and spill bytes."""
     import re
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-            t = re.search(r"bsgs_kernelI([fd])Li(\d+)E", name)
+            t = re.search(r"bsgs_kernelI([fd])Li(\d+)ELi(\d+)E", name)
+            a = re.search(r"apply_kernelI([fd])Li(\d+)E", name)
             if t:
                 dtype = "f32" if t.group(1) == "f" else "f64"
-                name = f"{dtype} K={t.group(2)}"
+                name = f"{dtype} V={t.group(2)} K={t.group(3)}"
+            elif a:
+                dtype = "f32" if a.group(1) == "f" else "f64"
+                name = f"{dtype} V={a.group(2)}"
             cur = dict(kernel=name)
             out.append(cur)
             continue
@@ -510,17 +539,19 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def bsr_library_matvec(D, Bt, offsets):
+def sparse_library_matvec(D, Bt, offsets):
     """The matvec as one PyTorch call, for its time only (never on the
-    path): a torch.sparse_bsr_tensor of its 4x4 blocks, bands of one shift
-    summed (the O-mesh seam bands share a shift with interior bands, and
-    only one of the two is nonzero at a cell), times x. Returns mv(x)."""
+    path): a torch.sparse_bsr_tensor of its VxV blocks (at V = 1 a
+    torch.sparse_csr_tensor: cuSPARSE's SpMV on the card), bands of one
+    shift summed (the O-mesh seam bands share a shift with interior bands,
+    and only one of the two is nonzero at a cell), times x. Returns
+    mv(x)."""
     import torch
     from fvens_tpu_torch.solver.banded import _norm_offsets
 
-    NC = D.shape[0]
+    NC, V = D.shape[0], D.shape[-1]
     dms = (0,) + _norm_offsets(offsets, NC)
-    blocks = torch.cat([D.permute(1, 2, 0)[None], Bt])      # (K+1, 4, 4, NC)
+    blocks = torch.cat([D.permute(1, 2, 0)[None], Bt])      # (K+1, V, V, NC)
     shifts = sorted(set(dms))
     merged = torch.stack([sum(blocks[k] for k, d in enumerate(dms)
                               if d == u) for u in shifts])
@@ -528,25 +559,35 @@ def bsr_library_matvec(D, Bt, offsets):
     cols = torch.stack([(cells + u) % NC for u in shifts], dim=1)
     cols, order = cols.sort(dim=1)
     vals = merged.permute(3, 0, 1, 2).gather(
-        1, order[:, :, None, None].expand(-1, -1, 4, 4))
+        1, order[:, :, None, None].expand(-1, -1, V, V))
     crow = torch.arange(0, NC * len(shifts) + 1, len(shifts),
                         device=D.device)
-    A = torch.sparse_bsr_tensor(crow, cols.reshape(-1),
-                                vals.reshape(-1, 4, 4).contiguous(),
-                                size=(4 * NC, 4 * NC), check_invariants=False)
+    if V == 1:
+        A = torch.sparse_csr_tensor(crow, cols.reshape(-1),
+                                    vals.reshape(-1).contiguous(),
+                                    size=(NC, NC), check_invariants=False)
+    else:
+        A = torch.sparse_bsr_tensor(crow, cols.reshape(-1),
+                                    vals.reshape(-1, V, V).contiguous(),
+                                    size=(V * NC, V * NC),
+                                    check_invariants=False)
 
     def mv(x):
-        return (A @ x.reshape(-1, 1)).reshape(NC, 4)
+        return (A @ x.reshape(-1, 1)).reshape(NC, V)
     return mv
 
 
-def banded_checks(dev, path: str, make):
+def banded_checks(dev, path: str, make, state=None, phase_times=True):
     """The K1 kernels against their plain twins on the step-0 operators of
     one path, at f32 (the mixed-precision Krylov system) and f64 (mixed
-    precision off): banded_apply in its three roles (matvec K=7, D^-1 v
-    K=1, bsgs sweep K=6), and the fused bsgs apply, which must also equal
-    the seven-launch banded_apply sequence value for value. `make(mixed)`
-    returns (solver, mesh). Returns (banded_apply rows, bsgs rows)."""
+    precision off): banded_apply in its three roles (matvec with the
+    diagonal, D^-1 v K=1, bsgs sweep; K=7, 1, 6 on the O-meshes' 4x4
+    blocks, 5, 1, 4 on the heat equation's 1x1 blocks), and the fused bsgs
+    apply, which must also equal the seven-launch banded_apply sequence
+    value for value. `make(mixed)` returns (solver, mesh); `state(mesh)`
+    the state of step 0 (default: the case's initial state);
+    `phase_times`: time the fused apply phase by phase too. Returns
+    (banded_apply rows, bsgs rows)."""
     import torch
     from fvens_tpu_torch.cases.casesolvers import initial_state
     from fvens_tpu_torch.cases.profile_step import (bsgs_phase_times,
@@ -558,15 +599,16 @@ def banded_checks(dev, path: str, make):
     rows, frows = [], []
     for mixed, tol in ((True, 1e-5), (False, 1e-12)):
         solver, cm = make(mixed)
-        _, _, ops = solver.step_operators(
-            cm, initial_state(solver.space, cm), solver.cfg.cfl_init)
+        u0 = initial_state(solver.space, cm) if state is None else state(cm)
+        _, _, ops = solver.step_operators(cm, u0, solver.cfg.cfl_init)
         dtype = ops.D.dtype
         dname = str(dtype)[6:]
         it = ops.D.element_size()
+        V = ops.D.shape[-1]
         bands7, d7 = bk.matvec_bands(ops.D, ops.Bt, ops.bl.offsets)
         (bands1, d1), (bandsn, dms_n) = bk.bsgs_bands(ops.Dinv, ops.DNbt,
                                                    ops.bl.offsets)
-        x = torch.from_numpy(rng.standard_normal((cm.NC, 4))).to(dev, dtype)
+        x = torch.from_numpy(rng.standard_normal((cm.NC, V))).to(dev, dtype)
         base = bk.banded_apply_plain(bands1, x, d1)
         # the cells where each band is nonzero: the diagonal everywhere,
         # the others over BandedStructure.support (the seam bands one ring)
@@ -581,7 +623,7 @@ def banded_checks(dev, path: str, make):
             yp = bk.banded_apply_plain(bands, x, dms, sign, b)
             err = float((y - yp).abs().max())
             scale = float(yp.abs().max())
-            row = dict(path=path, NC=cm.NC, op=name, K=bands.shape[0],
+            row = dict(path=path, NC=cm.NC, op=name, V=V, K=bands.shape[0],
                        dtype=dname, max_abs_err=err,
                        max_abs_y=scale, tol=tol * scale)
             check(np.isfinite(err) and err <= tol * scale,
@@ -594,11 +636,12 @@ def banded_checks(dev, path: str, make):
             # what the function needs: each band over its support, x and
             # the output (and base) once
             band_cells = sum(hi - lo for lo, hi in sup)
-            vecs = (3 if b is not None else 2) * 4 * cm.NC
+            vecs = (3 if b is not None else 2) * V * cm.NC
+            row["bound_bytes"] = (V * V * band_cells + vecs) * it
             row["bound_ms"], row["bound_by"] = bound(
-                (16 * band_cells + vecs) * it, 2 * 16 * band_cells, dname)
+                row["bound_bytes"], 2 * V * V * band_cells, dname)
             row["bound_all_cells_ms"], _ = bound(
-                (16 * bands.shape[0] * cm.NC + vecs) * it, 0, dname)
+                (V * V * bands.shape[0] * cm.NC + vecs) * it, 0, dname)
             if name == "matvec":
                 row.update(library_matvec(ops, x, yp, tol))
             rows.append(row)
@@ -621,7 +664,7 @@ def banded_checks(dev, path: str, make):
         err = float((z - zp).abs().max())
         scale = float(zp.abs().max())
         p = fused.plan
-        row = dict(path=path, NC=cm.NC, K=len(dms_n), sweeps=sweeps,
+        row = dict(path=path, NC=cm.NC, V=V, K=len(dms_n), sweeps=sweeps,
                    dtype=dname, blocks=p.blocks, chunk=p.chunk,
                    n_res=p.n_res, smem_bytes=p.smem_bytes,
                    equal_to_sequence=bool(torch.equal(z, zs)),
@@ -637,36 +680,40 @@ def banded_checks(dev, path: str, make):
         row["sequence_device_ms"] = device_ms(lambda: seq(x))
         # what this operator needs: the bands over their supports only
         band_cells = sum(hi - lo for lo, hi in ops.bl.support)
+        row["bound_bytes"] = (V * V * band_cells
+                              + (V * V + 2 * V) * cm.NC) * it
         row["bound_ms"], row["bound_by"] = bound(
-            (16 * band_cells + (16 + 2 * 4) * cm.NC) * it,
-            2 * 16 * (cm.NC + sweeps * band_cells) + 4 * sweeps * cm.NC,
+            row["bound_bytes"],
+            2 * V * V * (cm.NC + sweeps * band_cells) + V * sweeps * cm.NC,
             dname)
         row["bound_all_cells_ms"], _ = bound(
-            ((1 + len(dms_n)) * 16 + 2 * 4) * cm.NC * it, 0, dname)
+            ((1 + len(dms_n)) * V * V + 2 * V) * cm.NC * it, 0, dname)
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
         row["sequence_bound_share"] = (row["bound_ms"]
                                        / row["sequence_device_ms"])
         row["fused_over_sequence"] = (row["device_ms"]
                                       / row["sequence_device_ms"])
-        row["phases"] = bsgs_phase_times(bands1, bandsn, dms_n,
-                                         ops.bl.support, sweeps, x)
+        if phase_times:
+            row["phases"] = bsgs_phase_times(bands1, bandsn, dms_n,
+                                             ops.bl.support, sweeps, x)
         frows.append(row)
         print("banded_bsgs check", json.dumps(row), flush=True)
     return rows, frows
 
 
 def library_matvec(ops, x, want, tol) -> dict:
-    """library_ms of the matvec: one torch.sparse_bsr_tensor product on
-    the same operator and x, held to the twin's result; or the error that
-    shows no such call runs here."""
+    """library_ms of the matvec: one torch.sparse_bsr_tensor product (4x4
+    blocks) or torch.sparse_csr_tensor product (1x1) on the same operator
+    and x, held to the twin's result; or the error that shows no such call
+    runs here."""
     try:
-        mv = bsr_library_matvec(ops.D, ops.Bt, ops.bl.offsets)
+        mv = sparse_library_matvec(ops.D, ops.Bt, ops.bl.offsets)
         y = mv(x)
     except (RuntimeError, NotImplementedError) as e:
         return dict(library_ms=None, library_error=str(e).splitlines()[0])
     err = float((y - want).abs().max())
     check(err <= tol * float(want.abs().max()),
-          f"the BSR library matvec disagrees with the twin: {err}")
+          f"the sparse library matvec disagrees with the twin: {err}")
     return dict(library_ms=event_ms(lambda: mv(x)), library_max_abs_err=err)
 
 
@@ -1356,6 +1403,7 @@ def cli_vs_record(dev):
               f"{ref[key]}")
     check(same_functionals(run, rec["functionals"], 1e-6),
           "the functionals differ from the JAX package's by more than 1e-6")
+    return {k: run[k] for k in FUNCTIONALS}
 
 
 def card_line(kind: str, rec: dict):
@@ -1791,45 +1839,91 @@ def vortex_path(dev):
     return launches
 
 
+def heat_solvers(dev, n: int):
+    """make(mixed) -> (solver, mesh) of the banded heat problem on
+    unit_square(n) (HEAT_BANDED), for banded_checks: one mesh for both."""
+    import dataclasses
+    from fvens_tpu_torch.cases import model_problems as mp
+    solver, mesh = mp.heat_solver(dev, n, False, **HEAT_BANDED)
+    return lambda mixed: (dataclasses.replace(solver, lin=dataclasses.replace(
+        solver.lin, mixed_precision=mixed)), mesh)
+
+
+def heat_state(mesh):
+    """The heat problem's state of step 0: u = 0."""
+    import torch
+    return torch.zeros((mesh.NC, 1), dtype=torch.float64, device=mesh.device)
+
+
 def heat_path(dev):
-    """Phase E: DiffusionFV on unit_square(n) quads, implicit on the gather
-    path (bcsgs x3, V = 1 blocks) to 1e-9 at n in HEAT_N; at the largest,
-    n = 262,144 and blocked GMRES launches row_set once per Krylov
-    iteration. The L2 error order between the two must lie in [1.9, 2.1].
-    Returns the launches of the largest."""
+    """Phase E: DiffusionFV on unit_square(n) quads, implicit to 1e-9 at n
+    in HEAT_N (V = 1 blocks), on the gather path (bcsgs x3) and banded
+    (HEAT_BANDED: K1 for the matvec, the fused K1b for bsgs x6). At the
+    largest, n = 262,144 and blocked GMRES launches row_set once per
+    Krylov iteration. Each cycle of GMRES (one a step) is one K1 launch
+    for its residual and one per Krylov iteration; K1b one per Krylov
+    iteration, and on the blocked path one more per cycle (its trailing
+    apply). The banded runs take JAX_HEAT_BANDED_RECORD's steps, its
+    Krylov iterations within 1 and its L2 error to 1e-8 relative. The L2
+    error order between the two n must lie in [1.9, 2.1] on each path.
+    Returns (the launches of the largest gather solve, of the largest
+    banded one)."""
     import torch
     from fvens_tpu_torch.cases import model_problems as mp
     from fvens_tpu_torch.solver import linear
-    errs = {}
+    rec = {r["n"]: r for r in _load(JAX_HEAT_BANDED_RECORD)["runs"]}
+    errs, last = {}, {}
     for n in HEAT_N:
-        torch.cuda.synchronize()
-        zero_counts()
-        t0 = time.perf_counter()
-        err, info, mesh = mp.heat_solve(dev, n, False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        errs[n] = err
-        rep = dict(n=n, cells=mesh.n_cells, l2_error=err, steps=info.steps,
-                   krylov_iters=info.total_lin_iters, converged=info.converged,
-                   wall_s=wall, s_per_step=wall / max(info.steps, 1),
-                   blocked=mesh.NC >= linear._BLOCKED_N_THRESHOLD,
-                   launches=launches)
-        card_line("heat", rep)
-        check(info.converged and np.isfinite(err),
-              f"the heat solve at n = {n} did not converge")
-        want = info.total_lin_iters if rep["blocked"] else 0
-        check(launches["row_set"] == want
-              and launches["banded_apply"] == launches["banded_bsgs"] == 0,
-              f"heat launches {launches} for {info.total_lin_iters} Krylov "
-              "iterations")
+        for banded in (False, True):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            err, info, mesh = mp.heat_solve(dev, n, False,
+                                            **(HEAT_BANDED if banded else {}))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = last[banded] = read_counts()
+            errs[n, banded] = err
+            its, steps = info.total_lin_iters, info.steps
+            blocked = mesh.NC >= linear._BLOCKED_N_THRESHOLD
+            rep = dict(n=n, cells=mesh.n_cells, l2_error=err, steps=steps,
+                       krylov_iters=its, converged=info.converged,
+                       wall_s=wall, s_per_step=wall / max(steps, 1),
+                       blocked=blocked, launches=launches)
+            if banded:
+                want = rec[n]
+                rep["jax"] = dict(steps=want["steps"],
+                                  krylov_iters=want["krylov_iters"],
+                                  l2_error=want["l2_error"])
+            card_line("heat banded" if banded else "heat", rep)
+            check(info.converged and np.isfinite(err),
+                  f"the heat solve at n = {n} (banded {banded}) did not "
+                  "converge")
+            kernels = ((its + steps, its + (steps if blocked else 0))
+                       if banded else (0, 0))
+            check(launches["row_set"] == (its if blocked else 0)
+                  and (launches["banded_apply"],
+                       launches["banded_bsgs"]) == kernels,
+                  f"heat launches {launches} for {its} Krylov iterations in "
+                  f"{steps} steps (banded {banded}, blocked {blocked})")
+            if banded:
+                check(steps == want["steps"]
+                      and abs(its - want["krylov_iters"]) <= 1
+                      and abs(err - want["l2_error"])
+                      <= 1e-8 * want["l2_error"],
+                      f"banded heat at n = {n}: {steps} steps, {its} Krylov "
+                      f"iterations, L2 error {err!r}; the JAX record's "
+                      f"{rep['jax']}")
     a, b = HEAT_N[-2:]
-    order = float(np.log2(errs[a] / errs[b]) / np.log2(b / a))
-    print(f"heat L2 error order between n = {a} and {b}: {order:.4f}",
-          flush=True)
-    check(1.9 <= order <= 2.1, f"diffusion order {order} outside [1.9,2.1]")
+    for banded in (False, True):
+        order = float(np.log2(errs[a, banded] / errs[b, banded])
+                      / np.log2(b / a))
+        print(f"heat{' banded' if banded else ''} L2 error order between "
+              f"n = {a} and {b}: {order:.4f}", flush=True)
+        check(1.9 <= order <= 2.1,
+              f"diffusion order {order} outside [1.9,2.1] (banded {banded})")
     check(rep["blocked"], "the largest heat solve did not run blocked")
-    return launches
+    return last[False], last[True]
 
 
 # Phase F: the JAX package's other solver options on the gather path
@@ -1840,7 +1934,7 @@ JAX_OPTIONS_RECORD = "records/jax_solver_options_history.json"
 OPTIONS_MESH = (640, 320)        # F1-F3: cylinder_omesh, 204,800 cells
 ILU_MAIN_STEPS = 40              # F1: the ilu0 main solve's cap
 OPTION_STEPS = 10                # F2: main steps under each option but
-JVP_STEPS = 4                    # the JVP's (5.6 s a step on an H100)
+JVP_STEPS = 2                    # the JVP's (5.0-5.6 s a step on an H100)
 F2_OPTIONS = ("amg", "bline", "mf-jvp", "mf-fd")
 AMG_REPEAT_STEPS = 3             # F2: amg steps run twice, bit for bit
 RECYCLE_MAIN_STEPS = 60          # F3: the recycling main solve's cap
@@ -2188,7 +2282,8 @@ def options_phases(dev, paths: dict, gather_rep: dict):
 DIST_MESH = (640, 320)           # G1, G2: cylinder_omesh, 204,800 cells
 DIST_AGREE_STEPS = 10            # G1: main steps held to 1e-8 relative
 DIST_PARTS = (2, 4)              # G2, G3: ranks sharing cuda:0 over gloo
-DIST_STEPS = 5                   # G2: main steps from G1's starter state
+DIST_STEPS = 3                   # G2: main steps from G1's starter state
+DIST_CLI_MESH = CHECK_MESH       # G1's CLI pair (--devices 1, a resume)
 DIST_CHECK_MESH = (160, 80)      # G3: held to JAX_DIST_RECORD's runs of
 DIST_CHECK_PARTITION = "blocks"  # contiguous index blocks to convergence;
 #   the record's "bfs" runs (partition_mesh's own) wander for 346-423 main
@@ -2279,9 +2374,14 @@ def dist_one_rank(dev):
     main steps within 10%, the functionals to 1e-8; K1 at least once and
     the fused K1b once per Krylov iteration (one part: no rest list), no
     row_set; then K1 and K1b against their twins on the part's operators
-    at the starter's state. The one-device run's set-up (mesh and case)
-    and the world's start are timed beside G1's split of its wall.
-    Returns (the starter's state, the run's launches)."""
+    at the starter's state. The rank runs in a process of its own, so this
+    process solves the one-device case and computes G2's one-device forms
+    (g2_reference) while it runs; their walls overlap the world's. The
+    one-device run's set-up (mesh and case) and the world's start are
+    timed beside G1's split of its wall. Returns (the starter's state, the
+    run's launches, g2_reference's forms)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from fvens_tpu_torch.cases import bigmesh_case
     from fvens_tpu_torch.cases.casesolvers import build_space
@@ -2289,30 +2389,36 @@ def dist_one_rank(dev):
     from fvens_tpu_torch.output import entropy_error, surface_data
     from fvens_tpu_torch.solver import linear
     cfg, md = dist_case(DIST_MESH)
-    keep = linear._BLOCKED_N_THRESHOLD
-    linear._BLOCKED_N_THRESHOLD = 1 << 62
-    try:
+    with ThreadPoolExecutor(1) as ex:
+        t_world = time.perf_counter()
+        job = ex.submit(launch.run, g1_rank, 1, args=(cfg, md),
+                        timeout=DIST_TIMEOUT, join_timeout=DIST_JOIN,
+                        **world(dev, 1))
+        keep = linear._BLOCKED_N_THRESHOLD
+        linear._BLOCKED_N_THRESHOLD = 1 << 62
+        try:
+            t0 = time.perf_counter()
+            case, cm, u0 = bigmesh_case.build_case(dev, *DIST_MESH)
+            ref_build = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u, info = case.solve(cm, u0)
+            torch.cuda.synchronize()
+            ref_wall = time.perf_counter() - t0
+        finally:
+            linear._BLOCKED_N_THRESHOLD = keep
+        space = build_space(cfg)
+        ref_f = dict(zip(FUNCTIONALS, [entropy_error(space, cm, u)]
+                         + [float(x) for x in surface_data(space, cm, u,
+                                                           WALL)[1]]))
+        ref_st = case.starter_info
+        del case, cm, u, u0
         t0 = time.perf_counter()
-        case, cm, u0 = bigmesh_case.build_case(dev, *DIST_MESH)
-        ref_build = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        u, info = case.solve(cm, u0)
-        torch.cuda.synchronize()
-        ref_wall = time.perf_counter() - t0
-    finally:
-        linear._BLOCKED_N_THRESHOLD = keep
-    space = build_space(cfg)
-    ref_f = dict(zip(FUNCTIONALS, [entropy_error(space, cm, u)]
-                     + [float(x) for x in surface_data(space, cm, u,
-                                                       WALL)[1]]))
-    ref_st = case.starter_info
-    del case, cm, u, u0
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    got = launch.run(g1_rank, 1, args=(cfg, md), timeout=DIST_TIMEOUT,
-                     join_timeout=DIST_JOIN, **world(dev, 1))[0]
-    got["world_s"] = time.perf_counter() - t0
+        parity_ref = g2_reference(dev, cfg, md)
+        parity_ref_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        got = job.result()[0]
+    got["world_s"] = time.perf_counter() - t_world
     starter = got.pop("starter")
     hist, ref_h = got.pop("history"), info.history
     its = got["starter_iters"] + got["main_iters"]
@@ -2326,7 +2432,9 @@ def dist_one_rank(dev):
                            main_steps=info.steps,
                            main_iters=info.total_lin_iters, wall_s=ref_wall,
                            build_s=ref_build, functionals=ref_f,
-                           gmres="classic (forced)"),
+                           gmres="classic (forced)",
+                           beside="the G1 world"),
+        g2_reference_s=parity_ref_s,
         agree_rel=[abs(a[2] - b[2]) / b[2] for a, b in
                    zip(hist[:DIST_AGREE_STEPS], ref_h)]))
     check(got["converged"] and info.converged, "G1: a solve did not converge")
@@ -2347,23 +2455,25 @@ def dist_one_rank(dev):
     check(kern["fused"] and kern["matvec"]["ok"] and kern["bsgs"]["ok"],
           f"G1: K1 or the fused K1b on the part's operators differs from "
           f"its twin: {kern}")
-    return starter, launches
+    return starter, launches, parity_ref
 
 
 def dist_cli(ref: dict):
     """G1's CLI: `python -m fvens_tpu_torch.cases.cli --devices 1` (one
-    NCCL rank) on the committed cylinder ctrl at CLI_MESH with a VTU, the
-    surface table, the history and a checkpoint, then again, resuming;
-    its functionals within 1e-8 of the one-device CLI's at the same mesh
-    (`ref`, cli_path's run), the rerun's of the first's. CL, zero by
-    symmetry, is held absolutely, to JAX_DIST_RECORD's cl_abs: at CLI_MESH
-    the one-device CLI takes blocked GMRES (the CLI has no switch) and the
-    distributed one classic, and in f64 the two part at rounding. Logs in
-    CLI_LOG_DIR."""
+    NCCL rank) on the committed cylinder ctrl at DIST_CLI_MESH (160x80:
+    the one-device CLI at 640x320 is step 12's and the distributed solve
+    at 640x320 G1's; what the pair alone shows, that the CLI reaches
+    DistributedFlowCase and resumes from its stacked checkpoint, holds at
+    any size) with a VTU, the surface table, the history and a
+    checkpoint, then again, resuming (at main step 50 of 51); its
+    functionals within 1e-8 of the one-device CLI's at the same mesh
+    (`ref`, cli_vs_record's run), the rerun's of the first's. CL, zero by
+    symmetry, is held absolutely, to JAX_DIST_RECORD's cl_abs. Logs in
+    CLI_LOG_DIR. Runs beside G2 and G3 (dist_phases)."""
     import tempfile
     import xml.etree.ElementTree as ET
     cl_abs = _load(JAX_DIST_RECORD)["limits"]["cl_abs"]
-    ni, nj = CLI_MESH
+    ni, nj = DIST_CLI_MESH
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         p = {k: os.path.join(tmp, f) for k, f in (
@@ -2396,7 +2506,7 @@ def dist_cli(ref: dict):
         cells = int(piece.get("NumberOfCells"))
         surf = np.loadtxt(p["surface"])
     run, run2 = runs
-    rep = dict(mesh=f"cylinder_omesh{CLI_MESH}", route="nccl",
+    rep = dict(mesh=f"cylinder_omesh{DIST_CLI_MESH}", route="nccl",
                wall_s=run["wall_s"], main_steps=run["main_steps"],
                main_iters=run["main_iters"],
                functionals={k: run[k] for k in FUNCTIONALS},
@@ -2433,36 +2543,66 @@ def g2_exchange_us(flow) -> float:
     return (time.perf_counter() - t0) / DIST_EXCHANGES * 1e6
 
 
-def g2_parity(comm, cfg, md, flow) -> dict:
-    """G2's parity checks at 640x320: the sharded residual at a seeded
-    state against the one-device residual (rtol 1e-10, atol 1e-12; dt
-    atol 1e-14), and one bjacobi step at rtol 1e-10 against the one-device
-    step with classic GMRES (res 1e-10; u 1e-7, 1e-9), compared on rank
-    0, which also runs the one-device forms."""
+def g2_seeded(space, mesh):
+    """G2's seeded state on `mesh`: the free stream perturbed smoothly."""
     import torch
+    uinf = space.uinf(torch.float64, mesh.rc.device)
+    rc = mesh.rc
+    pert = 0.05 * torch.sin(rc[:, 0]) * torch.cos(rc[:, 1])
+    w = torch.tensor([1.0, 0.5, -0.5, 1.0], dtype=torch.float64,
+                     device=rc.device)
+    return uinf * (1.0 + pert[:, None] * w)
+
+
+def g2_step_configs():
+    """(lin, nl) of G2's bjacobi step: rtol 1e-10, one cycle of 80."""
     from fvens_tpu_torch.config import (LinearSolverConfig,
-                                        NonlinearUpdateConfig,
-                                        PseudoTimeConfig)
-    from fvens_tpu_torch.dist.shard import DistributedBackwardEuler
+                                        NonlinearUpdateConfig)
+    return (LinearSolverConfig(restart=80, maxiter=80, rtol=1e-10,
+                               rtol_adapt=False, pc="bjacobi"),
+            NonlinearUpdateConfig(scheme="full"))
+
+
+def g2_reference(dev, cfg, md) -> dict:
+    """The one-device forms G2's parity holds the parts to, computed once
+    for every D: the residual and time steps at g2_seeded's state, and one
+    bjacobi step from the free stream with classic GMRES (a distributed
+    solve's path), as numpy arrays over the real cells."""
+    import torch
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    from fvens_tpu_torch.config import PseudoTimeConfig
     from fvens_tpu_torch.mesh.device_mesh import compile_mesh
     from fvens_tpu_torch.solver import linear
     from fvens_tpu_torch.solver.steady import SteadyBackwardEuler
-    space, dev = flow.space, comm.device
-    uinf = space.uinf(torch.float64, dev)
+    space = build_space(cfg)
+    cm = compile_mesh(md, cfg.bcs, dtype=torch.float64, device=dev)
+    n = cm.n_cells
+    s_rhs, s_dt = space.compute_residual(cm, g2_seeded(space, cm), True)
+    be = SteadyBackwardEuler(space, PseudoTimeConfig(), *g2_step_configs())
+    keep = linear._BLOCKED_N_THRESHOLD
+    linear._BLOCKED_N_THRESHOLD = 1 << 62       # the classic path
+    try:
+        s_u1, s_res1, s_it1 = be._step(
+            cm, space.uinf(torch.float64, dev).repeat(cm.NC, 1), 50.0, 1e-10)
+    finally:
+        linear._BLOCKED_N_THRESHOLD = keep
+    s_rhs, s_dt, s_u1 = (t[:n].cpu().numpy() for t in (s_rhs, s_dt, s_u1))
+    return dict(rhs=s_rhs, dt=s_dt, u1=s_u1, res1=s_res1, it1=s_it1)
 
-    def seeded(mesh):
-        rc = mesh.rc
-        pert = 0.05 * torch.sin(rc[:, 0]) * torch.cos(rc[:, 1])
-        w = torch.tensor([1.0, 0.5, -0.5, 1.0], dtype=torch.float64,
-                         device=dev)
-        return uinf * (1.0 + pert[:, None] * w)
 
-    rhs, dt = flow.residual(seeded(flow.mesh))
+def g2_parity(comm, flow, ref) -> dict:
+    """G2's parity checks at 640x320: the sharded residual at g2_seeded's
+    state against the one-device residual (rtol 1e-10, atol 1e-12; dt
+    atol 1e-14), and one bjacobi step at rtol 1e-10 against the one-device
+    step with classic GMRES (res 1e-10; u 1e-7, 1e-9), compared on rank 0
+    with `ref`, g2_reference's one-device forms."""
+    from fvens_tpu_torch.config import PseudoTimeConfig
+    from fvens_tpu_torch.dist.shard import DistributedBackwardEuler
+    space = flow.space
+    rhs, dt = flow.residual(g2_seeded(space, flow.mesh))
     g_rhs = flow.gather_solution(rhs)
     g_dt = flow.gather_solution(dt[:, None])
-    lin = LinearSolverConfig(restart=80, maxiter=80, rtol=1e-10,
-                             rtol_adapt=False, pc="bjacobi")
-    nl = NonlinearUpdateConfig(scheme="full")
+    lin, nl = g2_step_configs()
     dbe = DistributedBackwardEuler(space=space, cfg=PseudoTimeConfig(),
                                    lin=lin, nl=nl, flow=flow)
     u1, res1, it1 = dbe._step(flow.dist_mesh(), flow.initial_state(), 50.0,
@@ -2470,13 +2610,8 @@ def g2_parity(comm, cfg, md, flow) -> dict:
     g_u1 = flow.gather_solution(u1)
     if comm.rank != 0:
         return {}
-    cm = compile_mesh(md, cfg.bcs, dtype=torch.float64, device=dev)
-    n = cm.n_cells
-    s_rhs, s_dt = space.compute_residual(cm, seeded(cm), True)
-    linear._BLOCKED_N_THRESHOLD = 1 << 62       # the classic path, as above
-    be = SteadyBackwardEuler(space, PseudoTimeConfig(), lin, nl)
-    s_u1, s_res1, s_it1 = be._step(cm, uinf.repeat(cm.NC, 1), 50.0, 1e-10)
-    s_rhs, s_dt, s_u1 = (t[:n].cpu().numpy() for t in (s_rhs, s_dt, s_u1))
+    s_rhs, s_dt, s_u1 = ref["rhs"], ref["dt"], ref["u1"]
+    s_res1, s_it1 = ref["res1"], ref["it1"]
     return dict(
         residual_ok=bool(np.allclose(g_rhs, s_rhs, rtol=1e-10, atol=1e-12)
                          and np.allclose(g_dt[:, 0], s_dt, rtol=1e-10,
@@ -2533,8 +2668,10 @@ def part_kernels(comm, cfg, flow, u) -> dict:
     return out
 
 
-def g23_rank(comm, cfg, md, starter, md_check, part_check, bfs_steps):
-    """G2 and G3 on one rank of a gloo world on cuda:0: the parity checks,
+def g23_rank(comm, cfg, md, starter, md_check, part_check, bfs_steps,
+             parity_ref):
+    """G2 and G3 on one rank of a gloo world on cuda:0: the parity checks
+    (against `parity_ref`, g2_reference's one-device forms),
     the kernel checks, DIST_STEPS main steps of the banded bsgs x6 solve
     from G1's starter state scattered to the parts (counted), then the
     DIST_CHECK_MESH solve through DistributedFlowCase on the given parts
@@ -2556,7 +2693,7 @@ def g23_rank(comm, cfg, md, starter, md_check, part_check, bfs_steps):
                own_cells=flow.mesh.n_cells, NC_local=flow.mesh.NC,
                halo_cells=flow.exch.halo_cells, rounds=len(flow.exch.rounds),
                bytes_per_exchange_f32=flow.exch.halo_cells * 16)
-    out["parity"] = g2_parity(comm, cfg, md, flow)
+    out["parity"] = g2_parity(comm, flow, parity_ref)
     u = flow.scatter(starter)
     out["kernels"] = part_kernels(comm, cfg, flow, u)
     out["us_per_exchange"] = g2_exchange_us(flow)
@@ -2602,9 +2739,11 @@ def g23_rank(comm, cfg, md, starter, md_check, part_check, bfs_steps):
     return out
 
 
-def dist_shared_card(dev, starter) -> dict:
+def dist_shared_card(dev, starter, parity_ref) -> dict:
     """G2 and G3 for each D of DIST_PARTS: D ranks on cuda:0 over gloo,
-    host-staged, each world once. G2 (DIST_MESH): the sharded residual and
+    host-staged, each world once, the worlds of every D at the same time
+    (so their per-rank times are taken beside each other). G2
+    (DIST_MESH): the sharded residual and
     one bjacobi step equal the one-device ones, K1 + rest and the bsgs
     sequence + rest equal their twins, and DIST_STEPS main steps from
     G1's starter state stay finite and fall, with K1 at least once and
@@ -2617,6 +2756,8 @@ def dist_shared_card(dev, starter) -> dict:
     the BFS parts its starter and first agree_steps main steps against the
     record's BFS run.
     Returns the G2 launches by path (summed over the ranks)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from fvens_tpu_torch.dist import launch
     rec = _load(JAX_DIST_RECORD)
     lim = rec["limits"]
@@ -2624,16 +2765,26 @@ def dist_shared_card(dev, starter) -> dict:
     cfg, md = dist_case(DIST_MESH)
     _, md_check = dist_case(DIST_CHECK_MESH)
     paths = {}
-    for D in DIST_PARTS:
+
+    def run_world(D):
+        """(the ranks' results, the world's seconds) of D ranks."""
         n = md_check.nelem
         part = np.minimum(np.arange(n) * D // n, D - 1)   # the record's
-        t0 = time.perf_counter()
         bfs_steps = lim["agree_steps"] if D in DIST_BFS_PARTS else None
+        t0 = time.perf_counter()
         ranks = launch.run(g23_rank, D, args=(cfg, md, starter, md_check,
-                                              part, bfs_steps),
+                                              part, bfs_steps, parity_ref),
                            timeout=DIST_TIMEOUT, join_timeout=DIST_JOIN,
                            **world(dev, D))
-        world_s = time.perf_counter() - t0
+        return ranks, time.perf_counter() - t0
+
+    # the worlds run at once, each in its own processes
+    with ThreadPoolExecutor(len(DIST_PARTS)) as ex:
+        jobs = {D: ex.submit(run_world, D) for D in DIST_PARTS}
+        worlds = {D: job.result() for D, job in jobs.items()}
+    for D in DIST_PARTS:
+        ranks, world_s = worlds[D]
+        bfs_steps = lim["agree_steps"] if D in DIST_BFS_PARTS else None
         route = ranks[0]["route"]
         check(all(r["route"] == "gloo, host-staged" for r in ranks),
               f"G2 D={D}: routes {[r['route'] for r in ranks]}")
@@ -2738,18 +2889,26 @@ def dist_shared_card(dev, starter) -> dict:
 
 
 def dist_phases(dev, paths: dict, cli_functionals: dict):
-    """Phase G: G1, its CLI, then G2 and G3."""
+    """Phase G: G1 (beside it, in this process, its one-device solve and
+    G2's one-device forms), then G2 and G3 with G1's CLI pair beside them
+    (its subprocesses run while the worlds do). `cli_functionals`: the
+    one-device CLI's at DIST_CLI_MESH."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     torch.cuda.empty_cache()
     mesh = f"cylinder {DIST_MESH[0]}x{DIST_MESH[1]}"
     with phase(f"G1: {mesh} banded, DistributedFlowCase on one NCCL rank "
                "vs the one-device classic-GMRES solve"):
-        starter, launches = dist_one_rank(dev)
+        starter, launches, parity_ref = dist_one_rank(dev)
         paths[f"G1 {mesh} banded, D=1, nccl"] = launches
-    with phase(f"G1: cli --devices 1 {CLI_MESH[0]}x{CLI_MESH[1]} + resume"):
-        dist_cli(cli_functionals)
-    with phase(f"G2/G3: D={DIST_PARTS} on cuda:0, gloo host-staged"):
-        paths.update(dist_shared_card(dev, starter))
+    ni, nj = DIST_CLI_MESH
+    with phase(f"G2/G3: D={DIST_PARTS} on cuda:0, gloo host-staged; beside "
+               f"them G1's cli --devices 1 {ni}x{nj} + resume"):
+        with ThreadPoolExecutor(1) as ex:
+            cli = ex.submit(dist_cli, cli_functionals)
+            paths.update(dist_shared_card(dev, starter, parity_ref))
+            cli.result()
 
 
 def main() -> int:
@@ -2778,7 +2937,10 @@ def main() -> int:
                                      cylinder_solvers(dev))
         b2, f2 = banded_checks(dev, "bench 160x80",
                                lambda mixed: bench_solver(dev, mixed=mixed))
-        brows, frows = brows + b2, frows + f2
+        b3, f3 = banded_checks(dev, f"heat {HEAT_N[-1]}x{HEAT_N[-1]}",
+                               heat_solvers(dev, HEAT_N[-1]), heat_state,
+                               phase_times=False)
+        brows, frows = brows + b2 + b3, frows + f2 + f3
         rrows = rowset_checks(dev)
         from fvens_tpu_torch.cases.profile_step import bsgs_phase_cost
         phase_cost = {str(dt)[6:]: bsgs_phase_cost(dev, dt)
@@ -2813,9 +2975,9 @@ def main() -> int:
     with phase("small solves vs the JAX package"):
         small_solves(dev)
     with phase(f"cli {CLI_MESH[0]}x{CLI_MESH[1]}"):
-        cli_rep, paths[f"cli {CLI_MESH[0]}x{CLI_MESH[1]}"] = cli_path(dev)
+        _, paths[f"cli {CLI_MESH[0]}x{CLI_MESH[1]}"] = cli_path(dev)
     with phase(f"cli {check_mesh[9:]} vs the JAX record"):
-        cli_vs_record(dev)
+        cli_check = cli_vs_record(dev)
     with phase(f"A: scheme sweep at {SWEEP_MESH[0]}x{SWEEP_MESH[1]}"):
         scheme_sweep(dev)
     naca = f"naca cli {NACA_MESH[0]}x{NACA_MESH[1]}"
@@ -2835,10 +2997,10 @@ def main() -> int:
     with phase(f"D: {vortex}"):
         paths[vortex] = vortex_path(dev)
     heat = f"heat {HEAT_N[-1]}x{HEAT_N[-1]}"
-    with phase(f"E: {heat}"):
-        paths[heat] = heat_path(dev)
+    with phase(f"E: {heat}, gather and banded"):
+        paths[heat], paths[f"{heat} banded"] = heat_path(dev)
     options_phases(dev, paths, gather_rep)
-    dist_phases(dev, paths, cli_rep["functionals"])
+    dist_phases(dev, paths, cli_check)
 
     def main_row(rows, **want):
         return next(r for r in rows if r["dtype"] == "float32"
@@ -2848,6 +3010,14 @@ def main() -> int:
     mv = main_row(brows, op="matvec")
     pc = main_row(frows)
     rs = main_row(rrows, n=ROWSET_SIZES[0])
+
+    def v1_rows(rows, **want):
+        """The heat equation's 1x1-block rows, f32 and f64."""
+        return [{k: r.get(k) for k in (
+            "op", "K", "dtype", "NC", "max_abs_err", *keys, "bound_bytes",
+            "library_ms", "sequence_device_ms", "equal_to_sequence")
+            if k in r} for r in rows if r["V"] == 1
+            and all(r[k] == v for k, v in want.items())]
     measured = {
         "banded_apply": dict(
             max_abs_err=max(r["max_abs_err"] for r in brows),
@@ -2855,7 +3025,9 @@ def main() -> int:
             **{k: mv[k] for k in keys},
             shape=f"f32 matvec, K=7, NC={mv['NC']}",
             library=("torch.sparse_bsr_tensor @ x" if mv.get("library_ms")
-                     else mv.get("library_error"))),
+                     else mv.get("library_error")),
+            v1=dict(rows=v1_rows(brows), library="torch.sparse_csr_tensor "
+                    "@ x (the matvec)")),
         "banded_bsgs": dict(
             max_abs_err=max(r["max_abs_err"] for r in frows),
             library_ms=None, **{k: pc[k] for k in keys},
@@ -2869,6 +3041,7 @@ def main() -> int:
                 "bound_ms", "bound_share", "fused_over_sequence")}
                 for r in frows if r is not pc],
             phase_cost=phase_cost,
+            v1=dict(rows=v1_rows(frows)),
             shape=f"f32 bsgs apply, K={pc['K']}, {pc['sweeps']} sweeps, "
                   f"NC={pc['NC']}",
             library="no single PyTorch call computes the sweeps"),

@@ -138,7 +138,8 @@ def _run(args, comm=None) -> int:
     from ..io_config.logs import ConvergenceLogger
     from ..mesh.device_mesh import compile_mesh
     from ..mesh.reader import read_mesh
-    from ..output import cell_fields, surface_data, volume_data
+    from ..output import (cell_fields, surface_data, volume_data,
+                          write_surface_table)
     from .casesolvers import (DistributedFlowCase, SteadyFlowCase,
                               UnsteadyFlowCase, build_space)
 
@@ -226,7 +227,7 @@ def _run(args, comm=None) -> int:
     space = build_space(cfg)
     if args.surface and cfg.wall_markers:
         table, _ = surface_data(space, mesh, u, cfg.wall_markers)
-        np.savetxt(args.surface, table, header="x y Cp Cf")
+        write_surface_table(args.surface, table)
         print(f"  wrote surface data to {args.surface}")
 
     if args.volume:

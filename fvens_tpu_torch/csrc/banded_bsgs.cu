@@ -11,6 +11,12 @@
 // with the cell arithmetic of banded_block.cuh, the same as banded_apply.cu's,
 // so the result equals that of the seven-launch sequence value for value (the
 // zero products it skips could change the sign of a zero result, no more).
+// Blocks are VxV: V = 4 for the flow equations (fvens_banded_bsgs_f32/_f64),
+// V = 1 for the scalar diffusion (the _v1_ entry points). What follows was
+// designed and measured at V = 4; V = 1 runs the same kernel, with a row of
+// a vector one scalar. (At the 512x512 heat equation's 262,144 cells and
+// four bands its dense bands fit in half of L2, so the plan keeps no shared
+// tier there.)
 //
 // What bounds it. By bytes: each input read once and the output written
 // once, over each band's support (the two O-mesh seam bands hold one ring of
@@ -38,8 +44,9 @@
 //     12,800-cell bench mesh they do, stay in L2 from sweep to sweep by
 //     themselves, and a shared tier costs more than it saves: the plan
 //     keeps none there), the first n_res cells of a block keep their dense
-//     bands in shared memory, in the cell-minor layout of the bands ((n_dense * 16) planes
-//     of n_res values, so consecutive threads hit consecutive banks), and
+//     bands in shared memory, in the cell-minor layout of the bands
+//     ((n_dense * V * V) planes of n_res values, so consecutive threads hit
+//     consecutive banks), and
 //     D^-1 v, the base of every sweep, beside them; the other cells read
 //     theirs from device memory (L2 after the first sweep) and the dv
 //     buffer. The plan leaves 32 KB of the SM's 256 KB of shared memory
@@ -81,9 +88,10 @@
 //     stays cooperative, so every block is resident and the spinning cannot
 //     deadlock. (With grid barriers in place of the flags an apply took
 //     2.4 us more at 640x320.);
-//   - z rows and the base are read, and rows written, as one 16-byte vector
-//     (two at f64): the buffers are the kernel's own and aligned. (The
-//     input v, which may be any row of the caller's, is read by scalars.);
+//   - at V = 4 z rows and the base are read, and rows written, as one
+//     16-byte vector (two at f64): the buffers are the kernel's own and
+//     aligned. (The input v, which may be any row of the caller's, is read
+//     by scalars; at V = 1 a row is one scalar, 4 or 8 bytes.);
 //   - the band count K is a template argument, so the band loop unrolls and
 //     a cell's loads of all its bands can be in flight together.
 // Buffers: phase 0 writes dv; sweep s reads the previous z (dv for s = 1)
@@ -104,15 +112,16 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "banded_block.cuh"
 
 // Mirrors the ctypes Structure `BsgsArgs` in solver/banded_kernels.py.
 struct BsgsArgs {
-  const void* dinv;    // (1, 4, 4, nc) D^-1, cells minor
-  const void* dn;      // (K, 4, 4, ld) D^-1 N, cells minor, plane stride ld
-  void* dv;            // (nc, 4) scratch: D^-1 v
-  void* z;             // (nc, 4) scratch: every other sweep's z
+  const void* dinv;    // (1, V, V, nc) D^-1, cells minor
+  const void* dn;      // (K, V, V, ld) D^-1 N, cells minor, plane stride ld
+  void* dv;            // (nc, V) scratch: D^-1 v
+  void* z;             // (nc, V) scratch: every other sweep's z
   unsigned long long* flags;  // (blocks,) the phases each block finished,
                               // zeros before the operator's first apply
   const int* waits;    // waits[b]..waits[b+1]: where block b's list lies in
@@ -136,7 +145,6 @@ struct BsgsArgs {
 namespace {
 
 using fvens::kMaxBands;
-using fvens::kV;
 using fvens::Offsets;
 // One block of 1,024 threads per SM (64 registers a thread), so that a
 // block gets all of its SM's shared memory.
@@ -212,45 +220,48 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// ---- rows of the (nc, 4) vectors as one 16-byte access (two at f64) ----
+// ---- rows of the (nc, V) vectors: at V = 4 one 16-byte access (two at
+// f64), at V = 1 one scalar (a 16-byte access there would be misaligned
+// and reach into the next cells) ----
 
-template <typename T>
-struct LoadRowVector;
-
-template <>
-struct LoadRowVector<float> {
-  __device__ __forceinline__ void row(const float* p, float v[kV]) const {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+template <typename T, int V>
+struct LoadRowVector {
+  __device__ __forceinline__ void row(const T* p, T* v) const {
+    if constexpr (V == 4 && std::is_same_v<T, float>) {
+      const float4 a = *reinterpret_cast<const float4*>(p);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    } else if constexpr (V == 4) {
+      const double2 a = reinterpret_cast<const double2*>(p)[0];
+      const double2 b = reinterpret_cast<const double2*>(p)[1];
+      v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = p[j];
+    }
   }
 };
 
-template <>
-struct LoadRowVector<double> {
-  __device__ __forceinline__ void row(const double* p, double v[kV]) const {
-    const double2 a = reinterpret_cast<const double2*>(p)[0];
-    const double2 b = reinterpret_cast<const double2*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+template <int V, typename T>
+__device__ __forceinline__ void store_row(T* p, const T* y) {
+  if constexpr (V == 4 && std::is_same_v<T, float>) {
+    *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+  } else if constexpr (V == 4) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(y[0], y[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(y[2], y[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = y[i];
   }
-};
-
-__device__ __forceinline__ void store_row(float* p, const float y[kV]) {
-  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
-}
-
-__device__ __forceinline__ void store_row(double* p, const double y[kV]) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(y[0], y[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(y[2], y[3]);
 }
 
 // Where a sweep reads the band entries of one cell: from device memory
 // (kGlobal), or the dense bands from shared memory and the others from
 // device memory (kShared). Shared memory holds the dense bands only, in band
-// order, as (n_dense * 16) planes of n_res cells. Bands absent at the cell
+// order, as (n_dense * V * V) planes of n_res cells. Bands absent at the cell
 // (outside their support) are skipped.
 enum BandSource { kGlobal, kShared };
 
-template <typename T, BandSource kSource>
+template <typename T, int V, BandSource kSource>
 struct SweepBands {
   const T* g;          // D^-1 N at this cell, plane stride gs
   int64_t gs;
@@ -262,31 +273,31 @@ struct SweepBands {
     return (present >> k) & 1u;
   }
   __device__ __forceinline__ T operator()(int q) const {
-    const int k = q / (kV * kV);
+    const int k = q / (V * V);
     if (kSource == kShared && ((dense >> k) & 1u)) {
-      return s[(__popc(dense & ((1u << k) - 1u)) * kV * kV + q % (kV * kV)) *
-               ss];
+      return s[(__popc(dense & ((1u << k) - 1u)) * V * V + q % (V * V)) * ss];
     }
     return __ldg(g + q * gs);
   }
 };
 
 // K, the band count, is a template argument so that the band loop unrolls
-// and each cell's loads of all its bands can be in flight together.
-template <typename T, int K>
+// and each cell's loads of all its bands can be in flight together; V, the
+// block size, so that a cell's rows and blocks are registers.
+template <typename T, int V, int K>
 __global__ void __launch_bounds__(kThreads, 1)
 banded_bsgs_kernel(Params<T> p) {
   using fvens::banded_block_apply;
-  using fvens::LoadReadOnly;
   using fvens::Planes;
+  using Load = fvens::LoadReadOnly<T, V>;
   constexpr int kAlign = 16 / sizeof(T);      // cells in 16 bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   const int64_t nr = p.n_res;
   const int64_t ld = p.ld;
   const int n_dense = __popc(p.dense);
-  T* sband = reinterpret_cast<T*>(smem_raw + kHeader);  // (n_dense*16, nr)
-  T* sbase = sband + n_dense * kV * kV * nr;             // (4, nr)
+  T* sband = reinterpret_cast<T*>(smem_raw + kHeader);  // (n_dense*V*V, nr)
+  T* sbase = sband + n_dense * V * V * nr;               // (V, nr)
   const int blk = blockIdx.x;
   const int c0 = blk * p.chunk;
   const int len = max(0, min(p.chunk, p.nc - c0));
@@ -303,13 +314,13 @@ banded_bsgs_kernel(Params<T> p) {
   if (tma && threadIdx.x == 0) {
     const uint32_t bytes = n_sh * sizeof(T);
     mbar_init(bar);
-    mbar_expect_tx(bar, n_dense * kV * kV * bytes);
+    mbar_expect_tx(bar, n_dense * V * V * bytes);
     const T* src = p.dn + c0;
     int m = 0;
     for (int k = 0; k < K; ++k) {
       if (!((p.dense >> k) & 1u)) continue;
-      for (int e = 0; e < kV * kV; ++e, ++m) {
-        bulk_copy(sband + m * nr, src + (k * kV * kV + e) * ld, bytes, bar);
+      for (int e = 0; e < V * V; ++e, ++m) {
+        bulk_copy(sband + m * nr, src + (k * V * V + e) * ld, bytes, bar);
       }
     }
   }
@@ -317,14 +328,13 @@ banded_bsgs_kernel(Params<T> p) {
   T* first = sweeps == 0 ? p.out : p.dv;
   for (int r = threadIdx.x; r < len; r += kThreads) {
     const int c = c0 + r;
-    T y[kV];
-    banded_block_apply<T, 1>(Planes<T, LoadReadOnly<T>>{p.dinv + c, p.nc},
-                             p.v, p.nc, c, 1, zero, nullptr, T(1),
-                             LoadReadOnly<T>(), y);
-    store_row(first + static_cast<int64_t>(c) * kV, y);
+    T y[V];
+    banded_block_apply<T, V, 1>(Planes<T, Load>{p.dinv + c, p.nc}, p.v, p.nc,
+                                c, 1, zero, nullptr, T(1), Load(), y);
+    store_row<V>(first + static_cast<int64_t>(c) * V, y);
     if (r < n_sh) {
 #pragma unroll
-      for (int i = 0; i < kV; ++i) sbase[i * nr + r] = y[i];
+      for (int i = 0; i < V; ++i) sbase[i * nr + r] = y[i];
     }
   }
   if (sweeps == 0) return;
@@ -358,26 +368,26 @@ banded_bsgs_kernel(Params<T> p) {
       for (int k = 0; k < K; ++k) {
         if (c >= p.lo[k] && c < p.hi[k]) present |= 1u << k;
       }
-      T b[kV], y[kV];
+      T b[V], y[V];
       if (r < n_sh) {
         if (!arrived) {              // the TMA copies, once, in sweep 1
           mbar_wait(bar, 0);
           arrived = true;
         }
 #pragma unroll
-        for (int i = 0; i < kV; ++i) b[i] = sbase[i * nr + r];
-        banded_block_apply<T, K>(
-            SweepBands<T, kShared>{p.dn + c, ld, sband + r, nr, present,
-                                   p.dense},
-            src, p.nc, c, K, p.off, b, T(-1), LoadRowVector<T>(), y);
+        for (int i = 0; i < V; ++i) b[i] = sbase[i * nr + r];
+        banded_block_apply<T, V, K>(
+            SweepBands<T, V, kShared>{p.dn + c, ld, sband + r, nr, present,
+                                      p.dense},
+            src, p.nc, c, K, p.off, b, T(-1), LoadRowVector<T, V>(), y);
       } else {
-        LoadRowVector<T>().row(p.dv + static_cast<int64_t>(c) * kV, b);
-        banded_block_apply<T, K>(
-            SweepBands<T, kGlobal>{p.dn + c, ld, nullptr, 0, present,
-                                   p.dense},
-            src, p.nc, c, K, p.off, b, T(-1), LoadRowVector<T>(), y);
+        LoadRowVector<T, V>().row(p.dv + static_cast<int64_t>(c) * V, b);
+        banded_block_apply<T, V, K>(
+            SweepBands<T, V, kGlobal>{p.dn + c, ld, nullptr, 0, present,
+                                      p.dense},
+            src, p.nc, c, K, p.off, b, T(-1), LoadRowVector<T, V>(), y);
       }
-      store_row(dst + static_cast<int64_t>(c) * kV, y);
+      store_row<V>(dst + static_cast<int64_t>(c) * V, y);
     }
     src = dst;
   }
@@ -388,13 +398,13 @@ int fail(cudaError_t err) {
   return static_cast<int>(err);
 }
 
-template <typename T, int K>
+template <typename T, int V, int K>
 int launch_bands(const BsgsArgs* a, const void* v, void* out,
                  void* stream) {
   constexpr int kAlign = 16 / sizeof(T);
   const unsigned dense = static_cast<unsigned>(a->dense);
   const int64_t per_cell =
-      static_cast<int64_t>(__builtin_popcount(dense) * kV * kV + kV) *
+      static_cast<int64_t>(__builtin_popcount(dense) * V * V + V) *
       sizeof(T);
   bool supports_ok = true;
   for (int k = 0; k < a->nbands && k < kMaxBands; ++k) {
@@ -425,7 +435,7 @@ int launch_bands(const BsgsArgs* a, const void* v, void* out,
   if (err == cudaSuccess && current != a->device) err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  auto kernel = banded_bsgs_kernel<T, K>;
+  auto kernel = banded_bsgs_kernel<T, V, K>;
   static int smem_set[kMaxDevices] = {};   // the attribute, per device
   if (a->smem_bytes > smem_set[a->device]) {
     err = cudaFuncSetAttribute(kernel,
@@ -472,17 +482,17 @@ int launch_bands(const BsgsArgs* a, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int V>
 int launch(const BsgsArgs* a, const void* v, void* out, void* stream) {
   switch (a->nbands) {
-    case 1: return launch_bands<T, 1>(a, v, out, stream);
-    case 2: return launch_bands<T, 2>(a, v, out, stream);
-    case 3: return launch_bands<T, 3>(a, v, out, stream);
-    case 4: return launch_bands<T, 4>(a, v, out, stream);
-    case 5: return launch_bands<T, 5>(a, v, out, stream);
-    case 6: return launch_bands<T, 6>(a, v, out, stream);
-    case 7: return launch_bands<T, 7>(a, v, out, stream);
-    case 8: return launch_bands<T, 8>(a, v, out, stream);
+    case 1: return launch_bands<T, V, 1>(a, v, out, stream);
+    case 2: return launch_bands<T, V, 2>(a, v, out, stream);
+    case 3: return launch_bands<T, V, 3>(a, v, out, stream);
+    case 4: return launch_bands<T, V, 4>(a, v, out, stream);
+    case 5: return launch_bands<T, V, 5>(a, v, out, stream);
+    case 6: return launch_bands<T, V, 6>(a, v, out, stream);
+    case 7: return launch_bands<T, V, 7>(a, v, out, stream);
+    case 8: return launch_bands<T, V, 8>(a, v, out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -493,14 +503,26 @@ extern "C" {
 
 // Each returns the cudaError_t of the launch (0 on success); a launch that
 // the runtime refuses never runs, so the caller must check it.
+// 4x4 blocks.
 int fvens_banded_bsgs_f32(const BsgsArgs* a, const void* v, void* out,
                           void* stream) {
-  return launch<float>(a, v, out, stream);
+  return launch<float, 4>(a, v, out, stream);
 }
 
 int fvens_banded_bsgs_f64(const BsgsArgs* a, const void* v, void* out,
                           void* stream) {
-  return launch<double>(a, v, out, stream);
+  return launch<double, 4>(a, v, out, stream);
+}
+
+// 1x1 blocks.
+int fvens_banded_bsgs_v1_f32(const BsgsArgs* a, const void* v, void* out,
+                             void* stream) {
+  return launch<float, 1>(a, v, out, stream);
+}
+
+int fvens_banded_bsgs_v1_f64(const BsgsArgs* a, const void* v, void* out,
+                             void* stream) {
+  return launch<double, 1>(a, v, out, stream);
 }
 
 // What the launch plan needs of the card: out[0] SMs, out[1] the dynamic

@@ -186,3 +186,13 @@ def surface_data(space, mesh, u: torch.Tensor, wall_markers):
     table = torch.stack([mesh.f_mid[sel, 0], mesh.f_mid[sel, 1], cp, cf],
                         dim=1).detach().cpu().numpy()
     return table, (float(Cl), float(Cdp), float(Cdsf))
+
+
+SURFACE_HEADER = "x y Cp Cf"
+
+
+def write_surface_table(path: str, table: np.ndarray) -> None:
+    """surface_data's table as the CLI's --surface file: whitespace columns
+    x y Cp Cf under a '#' header, the JAX package's format, which
+    scripts/plotsurfdata.py reads."""
+    np.savetxt(path, table, header=SURFACE_HEADER)

@@ -10,8 +10,8 @@ signatures. Two kernels share one cell's arithmetic (csrc/banded_block.cuh):
 
         out[c] = base[c] + sign * sum_k B_k[:, :, c] . x[(c + d_k) mod NC]
 
-    one thread per cell, with the band blocks in banded_blocks' (K, 4, 4, NC)
-    cell-minor layout and the vectors in the solver's (NC, 4) layout. It is
+    one thread per cell, with the band blocks in banded_blocks' (K, V, V, NC)
+    cell-minor layout and the vectors in the solver's (NC, V) layout. It is
     the matvec (the diagonal joins as the d = 0 band). No wrap-padded copy
     of x (a non-negative modulo finds the shifted row), no transposes, no
     tile-size gate: any NC, f32 and f64, fully band-covered meshes only;
@@ -23,6 +23,10 @@ signatures. Two kernels share one cell's arithmetic (csrc/banded_block.cuh):
     seven-launch sequence of banded_apply (make_banded_bsgs_sequence) value
     for value: the same products summed in the same order, less the
     skipped zero products.
+
+Both take V x V blocks for V in BLOCK_SIZES: 4 (the flow equations) and
+1 (the scalar diffusion), each its own instantiation of the kernels, picked
+by the operands' V (`bands.shape[1]`); any other V raises ValueError.
 
 `banded_apply` and `bsgs_apply` launch their kernel for CUDA tensors and
 raise if the launch fails; for CPU tensors they take their plain PyTorch
@@ -44,7 +48,7 @@ from .._build import CSRC_DIR, build_cuda_library
 from .banded import (_block_mv, _norm_offsets, _shift, bsgs_sweeps,
                      rest_apply)
 
-V = 4                      # block size (NVARS)
+BLOCK_SIZES = (1, 4)       # the V x V blocks the kernels are built for
 MAX_BANDS = 8              # the kernels' offset table size
 DTYPES = (torch.float32, torch.float64)
 
@@ -70,13 +74,21 @@ class BsgsArgs(ctypes.Structure):
                 ("hi", ctypes.c_int * MAX_BANDS)]
 
 
+def _entry(lib, stem: str, V: int, dtype):
+    """The C entry point of `stem` for V x V blocks and dtype, e.g.
+    fvens_banded_apply_f32 (V = 4) or fvens_banded_apply_v1_f64."""
+    return getattr(lib, f"{stem}{'_v1' if V == 1 else ''}_"
+                        f"{'f32' if dtype == torch.float32 else 'f64'}")
+
+
 def _load(name: str):
     """Build (at first use) and load csrc/<name>.cu; returns the CDLL."""
     if name not in _LIBS:
         lib, info = build_cuda_library(
             name, [os.path.join(CSRC_DIR, f"{name}.cu")])
         if name == "banded_apply":
-            for fn in (lib.fvens_banded_apply_f32, lib.fvens_banded_apply_f64):
+            for fn in (_entry(lib, "fvens_banded_apply", V, dt)
+                       for V in BLOCK_SIZES for dt in DTYPES):
                 fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_int, ctypes.c_void_p, ctypes.c_double,
@@ -85,7 +97,8 @@ def _load(name: str):
             lib.fvens_cuda_error_string.argtypes = [ctypes.c_int]
             lib.fvens_cuda_error_string.restype = ctypes.c_char_p
         else:
-            for fn in (lib.fvens_banded_bsgs_f32, lib.fvens_banded_bsgs_f64):
+            for fn in (_entry(lib, "fvens_banded_bsgs", V, dt)
+                       for V in BLOCK_SIZES for dt in DTYPES):
                 fn.argtypes = [ctypes.POINTER(BsgsArgs), ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
@@ -135,16 +148,23 @@ def _check_ops(what: str, tensors, dtype, device):
 
 
 def _check_bands(bands, dms):
-    if bands.dim() != 4 or tuple(bands.shape[1:3]) != (V, V):
-        raise ValueError(f"bands must be (K, {V}, {V}, NC), got "
+    """Checks bands (K, V, V, NC) and its K shifts; returns V."""
+    if bands.dim() != 4 or bands.shape[1] != bands.shape[2]:
+        raise ValueError(f"bands must be (K, V, V, NC), got "
                          f"{tuple(bands.shape)}")
+    V = bands.shape[1]
+    if V not in BLOCK_SIZES:
+        sizes = " or ".join(f"{b}x{b}" for b in BLOCK_SIZES)
+        raise ValueError(f"the banded kernels take {sizes} blocks, got "
+                         f"{V}x{V}")
     K = bands.shape[0]
     if not 1 <= K <= MAX_BANDS or len(dms) != K:
         raise ValueError(f"need 1 <= K <= {MAX_BANDS} bands and one shift "
                          f"each, got K={K}, {len(dms)} shifts")
+    return V
 
 
-def _check_vec(name, t, NC):
+def _check_vec(name, t, NC, V):
     if tuple(t.shape) != (NC, V):
         raise ValueError(f"{name} must be ({NC}, {V}), got {tuple(t.shape)}")
 
@@ -173,24 +193,22 @@ class BandedApply:
     checks x (and base) and launches, or on CPU tensors runs the twin."""
 
     def __init__(self, bands, dms, sign=1.0):
-        _check_bands(bands, dms)
+        self.V = _check_bands(bands, dms)
         _check_ops("banded_apply", [bands], bands.dtype, bands.device)
         self.bands, self.dms, self.sign = bands, tuple(dms), float(sign)
         self.NC, self.dtype, self.device = (bands.shape[3], bands.dtype,
                                             bands.device)
         if self.device.type == "cuda":
-            lib = _load("banded_apply")
-            self._fn = (lib.fvens_banded_apply_f32
-                        if self.dtype == torch.float32
-                        else lib.fvens_banded_apply_f64)
+            self._fn = _entry(_load("banded_apply"), "fvens_banded_apply",
+                              self.V, self.dtype)
             self._offs = (ctypes.c_int * MAX_BANDS)(*self.dms)
             self._offs_ptr = ctypes.addressof(self._offs)
 
     def __call__(self, x, base=None):
-        _check_vec("x", x, self.NC)
+        _check_vec("x", x, self.NC, self.V)
         ops = [x] if base is None else [x, base]
         if base is not None:
-            _check_vec("base", base, self.NC)
+            _check_vec("base", base, self.NC, self.V)
         _check_ops("banded_apply", ops, self.dtype, self.device)
         if self.device.type == "cpu":
             return banded_apply_plain(self.bands, x, self.dms, self.sign, base)
@@ -244,9 +262,9 @@ BSGS_HEADER_BYTES = 16     # the kernel's dynamic shared memory before the
 BSGS_L1_BYTES = 32 * 1024
 
 
-def bsgs_cell_bytes(K: int, dtype) -> int:
-    """Shared memory one resident cell takes: the 16 entries of each of the
-    K bands kept there, and its 4 entries of D^-1 v."""
+def bsgs_cell_bytes(K: int, dtype, V: int = 4) -> int:
+    """Shared memory one resident cell takes: the V * V entries of each of
+    the K bands kept there, and its V entries of D^-1 v."""
     return (K * V * V + V) * _itemsize(dtype)
 
 
@@ -267,29 +285,31 @@ def bsgs_dense_bands(support, NC: int) -> tuple:
     return tuple(2 * (hi - lo) > NC for lo, hi in support)
 
 
-def bsgs_bands_fit_l2(support, dense, dtype, l2_bytes: int) -> bool:
-    """Whether the dense bands, over their supports, fit in half of the
-    card's L2: then they stay in L2 from sweep to sweep by themselves, and
-    the fused kernel keeps none in shared memory (at the 12,800-cell bench
-    mesh bringing them in cost more than it saved; PERF.md)."""
+def bsgs_bands_fit_l2(support, dense, dtype, l2_bytes: int,
+                      V: int = 4) -> bool:
+    """Whether the dense bands (V x V blocks), over their supports, fit in
+    half of the card's L2: then they stay in L2 from sweep to sweep by
+    themselves, and the fused kernel keeps none in shared memory (at the
+    12,800-cell bench mesh bringing them in cost more than it saved;
+    PERF.md)."""
     cells = sum(hi - lo for (lo, hi), d in zip(support, dense) if d)
     return 2 * cells * V * V * _itemsize(dtype) <= l2_bytes
 
 
 def bsgs_launch_plan(NC: int, K: int, dtype, smem_bytes: int,
-                     n_blocks: int) -> BsgsPlan:
-    """The fused kernel's grid for NC cells with K bands kept in shared
-    memory: at most n_blocks blocks (one per SM) of equal cell ranges, each
-    a whole number of 16-byte runs, each keeping as many of its cells
-    resident, in whole 16-byte runs, as smem_bytes of shared memory hold
-    after the kernel's header."""
+                     n_blocks: int, V: int = 4) -> BsgsPlan:
+    """The fused kernel's grid for NC cells with K bands of V x V blocks
+    kept in shared memory: at most n_blocks blocks (one per SM) of equal
+    cell ranges, each a whole number of 16-byte runs, each keeping as many
+    of its cells resident, in whole 16-byte runs, as smem_bytes of shared
+    memory hold after the kernel's header."""
     if NC < 1 or not 0 <= K <= MAX_BANDS or n_blocks < 1 or smem_bytes < 0:
         raise ValueError(f"no plan for NC={NC}, K={K}, n_blocks={n_blocks}, "
                          f"smem_bytes={smem_bytes}")
     a = bsgs_align(dtype)
     chunk = -(-NC // n_blocks)
     chunk = -(-chunk // a) * a
-    per_cell = bsgs_cell_bytes(K, dtype)
+    per_cell = bsgs_cell_bytes(K, dtype, V)
     room = max(0, smem_bytes - BSGS_HEADER_BYTES) // per_cell
     n_res = min(chunk, room) // a * a
     return BsgsPlan(blocks=-(-NC // chunk), chunk=chunk, n_res=n_res,
@@ -388,7 +408,8 @@ def bsgs_apply_plain(dinv, dn, dms, sweeps, v):
 
 
 def _check_bsgs(dinv, dn, dms, sweeps, support):
-    _check_bands(dn, dms)
+    """Checks the fused apply's operands; returns V."""
+    V = _check_bands(dn, dms)
     NC = dn.shape[3]
     if support is not None and (
             len(support) != len(dms)
@@ -401,6 +422,7 @@ def _check_bsgs(dinv, dn, dms, sweeps, support):
     if not isinstance(sweeps, int) or sweeps < 0:
         raise ValueError(f"sweeps must be an int >= 0, got {sweeps!r}")
     _check_ops("bsgs_apply", [dinv, dn], dn.dtype, dn.device)
+    return V
 
 
 class BsgsApply:
@@ -423,7 +445,7 @@ class BsgsApply:
 
     def __init__(self, dinv, dn, dms, sweeps: int, support=None,
                  smem_bytes=None, n_blocks=None):
-        _check_bsgs(dinv, dn, dms, sweeps, support)
+        self.V = V = _check_bsgs(dinv, dn, dms, sweeps, support)
         self.dinv, self.dn, self.dms, self.sweeps = dinv, dn, tuple(dms), \
             sweeps
         self.NC, self.dtype, self.device = dn.shape[3], dn.dtype, dn.device
@@ -436,11 +458,12 @@ class BsgsApply:
         lim = bsgs_device_limits(self.device)
         if smem_bytes is None:
             smem_bytes = (0 if bsgs_bands_fit_l2(self.support, dense,
-                                                 self.dtype, lim["l2_bytes"])
+                                                 self.dtype, lim["l2_bytes"],
+                                                 V)
                           else lim["smem_per_block"])
         self.plan = p = bsgs_launch_plan(
             self.NC, sum(dense), self.dtype, smem_bytes,
-            lim["n_blocks"] if n_blocks is None else n_blocks)
+            lim["n_blocks"] if n_blocks is None else n_blocks, V)
         self.waits, self._waits = _block_waits(self.device, self.NC, p,
                                                self.dms, self.support)
         # one thread spins on each
@@ -454,10 +477,11 @@ class BsgsApply:
             self._dn = torch.zeros(dn.shape[:3] + (ld,), dtype=self.dtype,
                                    device=self.device)
             self._dn[..., :self.NC] = dn
-        lib = _load("banded_bsgs")
-        self._fn = (lib.fvens_banded_bsgs_f32 if self.dtype == torch.float32
-                    else lib.fvens_banded_bsgs_f64)
-        self._scratch = torch.empty((2, self.NC, V), dtype=self.dtype,
+        self._fn = _entry(_load("banded_bsgs"), "fvens_banded_bsgs", V,
+                          self.dtype)
+        # dv and z, each 16-byte aligned (at V = 1 a buffer of NC values
+        # is not a whole number of 16 bytes: the second starts at ld)
+        self._scratch = torch.empty((2, ld, V), dtype=self.dtype,
                                     device=self.device)
         self._flags = torch.zeros(p.blocks, dtype=torch.int64,
                                   device=self.device)
@@ -476,7 +500,7 @@ class BsgsApply:
         self._args_ref = ctypes.byref(self._args)
 
     def __call__(self, v):
-        _check_vec("v", v, self.NC)
+        _check_vec("v", v, self.NC, self.V)
         _check_ops("bsgs_apply", [v], self.dtype, self.device)
         if self.device.type == "cpu":
             return bsgs_apply_plain(self.dinv, self.dn, self.dms, self.sweeps,

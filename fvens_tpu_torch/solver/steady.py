@@ -28,8 +28,8 @@ fetch per step. The linear solve takes one of the JAX package's two paths
     launch of the fused bsgs kernel, both in solver/banded_kernels.py;
     otherwise (pallas=False, or CPU tensors) the plain PyTorch twins of
     solver/banded.py. The bjacobi preconditioner is the plain D^-1 v
-    contraction on both. The kernels take 4x4 blocks only: a banded V = 1
-    system (DiffusionFV) on the card raises NotImplementedError;
+    contraction on both. The kernels take the flow equations' 4x4 blocks
+    and the scalar diffusion's (DiffusionFV) 1x1 blocks;
   - the gather path everywhere else (the JAX package's default): the slot
     matvec and make_preconditioner of solver/linear.py (none, bjacobi,
     bsgs, bcsgs, ilu0, bline, amg), plain PyTorch; the ilu0, bline and amg
@@ -465,11 +465,6 @@ class SteadyBackwardEuler:
                 mg=ops.mg, mg_opts=self._mg_opts(), ilu=ops.ilu,
                 ilu_setup=lin.ilu_setup_sweeps)
         kernel = self._kernel_on(ops.D)
-        if kernel and ops.D.shape[-1] != 4:
-            raise NotImplementedError(
-                f"not ported yet: the banded kernels with {ops.D.shape[-1]}x"
-                f"{ops.D.shape[-1]} blocks (they take 4x4; ROADMAP queue 1 "
-                "item 11); set LinearSolverConfig.banded=False")
         bl = ops.bl
         make_mv = make_banded_matvec_kernel if kernel else make_banded_matvec
         mv = make_mv(ops.D, ops.Bt, bl.offsets, bl, ops.R)

@@ -10,7 +10,9 @@ write three buffers in turn (dv, then z and out by the parity rule). Here:
     bands confined to a few cells); on the 640x320 O-mesh each block waits
     for its two neighbours only, the seam bands closing the ring;
   - the block's shared-memory tier: 16-byte runs, within the shared
-    memory given, as many as fit;
+    memory given, as many as fit, with 4x4 blocks and with the heat
+    equation's 1x1 blocks (unit_square(16) and (512): whose bands fit in
+    L2, so the card's plan keeps no shared tier there);
   - a schedule simulator in plain PyTorch: the phases run block by block
     in seeded random orders that respect only the plan's waits, on the
     kernel's three buffers. It equals bsgs_apply_plain bit for bit at f64
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from fvens_tpu_torch.cases import bigmesh_case
+from fvens_tpu_torch.cases import model_problems as mp
 from fvens_tpu_torch.solver import banded as tb
 from fvens_tpu_torch.solver import banded_kernels as bk
 
@@ -46,6 +49,18 @@ def omesh_structures():
     return out
 
 
+@pytest.fixture(scope="module")
+def heat_structures():
+    """{n: (NC, normalized shifts, supports)} of the heat equation's
+    unit_square(n) (1x1 blocks)."""
+    out = {}
+    for n in (16, 512):
+        _, mesh = mp.heat_solver("cpu", n, False, banded=True)
+        bl = tb.banded_structure(mesh)
+        out[n] = (mesh.NC, tb._norm_offsets(bl.offsets, mesh.NC), bl.support)
+    return out
+
+
 def _deps_brute(NC, chunk, blocks, dms, support):
     """deps by cell: the owners of (c + d) mod NC, c in band k's support."""
     deps = [set() for _ in range(blocks)]
@@ -58,9 +73,61 @@ def _deps_brute(NC, chunk, blocks, dms, support):
     return tuple(tuple(sorted(s)) for s in deps)
 
 
-def _plan(NC, support, dtype, smem=H100_SMEM, n_blocks=H100_SMS):
+def _plan(NC, support, dtype, smem=H100_SMEM, n_blocks=H100_SMS, V=4):
     dense = bk.bsgs_dense_bands(support, NC)
-    return bk.bsgs_launch_plan(NC, sum(dense), dtype, smem, n_blocks)
+    return bk.bsgs_launch_plan(NC, sum(dense), dtype, smem, n_blocks, V)
+
+
+@pytest.mark.parametrize("V", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cell_bytes(V, dtype):
+    """A resident cell: V * V entries of each band kept on chip and V of
+    D^-1 v (at K = 4: 272 bytes at V = 4, 20 at V = 1, in f32)."""
+    it = 4 if dtype == torch.float32 else 8
+    for K in range(bk.MAX_BANDS + 1):
+        assert bk.bsgs_cell_bytes(K, dtype, V) == (K * V * V + V) * it
+    assert bk.bsgs_cell_bytes(4, torch.float32, V) == {1: 20, 4: 272}[V]
+
+
+@pytest.mark.parametrize("n", [16, 512])
+def test_heat_waits_are_the_neighbours(heat_structures, n):
+    """unit_square(n), 1x1 blocks, shifts (-n, -1, 1, n): deps equals the
+    brute force. No band wraps (each band's support stops short of the
+    wrap), so at 512x512 (1,988 cells a block at f32, 1,986 at f64, more
+    than n) each block waits for the blocks beside it only, the first and
+    the last for one."""
+    NC, dms, support = heat_structures[n]
+    assert dms == (-n, -1, 1, n)
+    for dtype in (torch.float32, torch.float64):
+        p = _plan(NC, support, dtype, V=1)
+        deps = bk.bsgs_block_deps(NC, p.chunk, p.blocks, dms, support)
+        assert deps == _deps_brute(NC, p.chunk, p.blocks, dms, support)
+        waits = bk.bsgs_block_waits(deps)
+        if n == 512:
+            B = p.blocks
+            assert (B, p.chunk) == ((132, 1988) if dtype == torch.float32
+                                    else (132, 1986))
+            assert [set(w) for w in waits] == [
+                {o for o in (b - 1, b + 1) if 0 <= o < B} for b in range(B)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_heat_shared_tier_v1(heat_structures, dtype):
+    """At 512x512 the four 1x1 bands (8.4 MB at f64) fit in half of an
+    H100's L2, so the plan keeps none in shared memory; given an H100's
+    shared memory a block keeps all its cells (20 bytes a cell at f32, 40
+    at f64), in 16-byte runs."""
+    NC, _, support = heat_structures[512]
+    dense = bk.bsgs_dense_bands(support, NC)
+    assert dense == (True,) * 4
+    assert bk.bsgs_bands_fit_l2(support, dense, dtype, 50 * 1024 * 1024, 1)
+    assert not bk.bsgs_bands_fit_l2(support, dense, dtype, 50 * 1024 * 1024)
+    p = _plan(NC, support, dtype, V=1)
+    assert p.n_res == p.chunk and p.chunk % bk.bsgs_align(dtype) == 0
+    assert p.smem_bytes == 16 + p.chunk * bk.bsgs_cell_bytes(4, dtype, 1)
+    q = _plan(NC, support, dtype, smem=16 + 1001 * bk.bsgs_cell_bytes(
+        4, dtype, 1), V=1)
+    assert q.n_res == 1000 and q.chunk == p.chunk
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -170,8 +237,9 @@ def test_shared_tier_only_where_the_bands_outgrow_l2(omesh_structures,
     assert not bk.bsgs_bands_fit_l2(support, dense, dtype, 2 * nbytes - 1)
 
 
+@pytest.mark.parametrize("V", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_plan_shared_tier_is_aligned_and_full(dtype):
+def test_plan_shared_tier_is_aligned_and_full(dtype, V):
     """Every block start and the shared tier a whole number of 16-byte
     runs; as many runs as the shared memory holds after its 16-byte
     header, never past the block's range; no shared memory asked for
@@ -180,10 +248,10 @@ def test_plan_shared_tier_is_aligned_and_full(dtype):
     assert a == (4 if dtype == torch.float32 else 2)
     for NC in (1, 3, 129, 1000, 12_800, 204_800):
         for K in (0, 4, 8):
-            per_cell = bk.bsgs_cell_bytes(K, dtype)
+            per_cell = bk.bsgs_cell_bytes(K, dtype, V)
             for n_blocks in (1, 132, 1000):
                 for smem in (0, 16 + per_cell - 1, 48 * 1024, H100_SMEM):
-                    p = bk.bsgs_launch_plan(NC, K, dtype, smem, n_blocks)
+                    p = bk.bsgs_launch_plan(NC, K, dtype, smem, n_blocks, V)
                     assert p.chunk % a == 0 and p.n_res % a == 0
                     assert p.n_res <= p.chunk
                     assert p.smem_bytes == (16 + p.n_res * per_cell
@@ -218,10 +286,10 @@ def simulate(dinv, dn, dms, sweeps, v, chunk, blocks, waits, seed,
     as the kernel skips it). Events run in a random order among those the
     waits allow. Buffers start as NaN, so a read of a value not yet
     written shows."""
-    NC = v.shape[0]
+    NC, V = v.shape
     g = np.random.default_rng(seed)
     Dt, vt = dinv[0], v.T
-    bufs = {n: torch.full((4, NC), float("nan"), dtype=v.dtype)
+    bufs = {n: torch.full((V, NC), float("nan"), dtype=v.dtype)
             for n in ("dv", "z", "out")}
     rw = _phase_buffers(sweeps)
     done = [-1] * blocks
@@ -246,35 +314,41 @@ def simulate(dinv, dn, dms, sweeps, v, chunk, blocks, waits, seed,
     return bufs["out"].T
 
 
-def _inputs(NC, K, seed, support=None):
+def _inputs(NC, K, seed, support=None, V=4):
     g = np.random.default_rng(seed)
-    dinv = torch.from_numpy(g.standard_normal((1, 4, 4, NC)) / 4)
-    dn = torch.from_numpy(g.standard_normal((K, 4, 4, NC)) * (0.5 / (4 * K)))
+    dinv = torch.from_numpy(g.standard_normal((1, V, V, NC)) / V)
+    dn = torch.from_numpy(g.standard_normal((K, V, V, NC)) * (0.5 / (V * K)))
     for k, (lo, hi) in enumerate(support or ()):
         dn[k, :, :, :lo] = 0
         dn[k, :, :, hi:] = 0
-    return dinv, dn, torch.from_numpy(g.standard_normal((NC, 4)))
+    return dinv, dn, torch.from_numpy(g.standard_normal((NC, V)))
 
 
-def _case(name, omesh_structures):
-    """(NC, shifts, support, n_blocks) of a simulated case."""
+def _case(name, omesh_structures, heat_structures):
+    """(NC, shifts, support, n_blocks, V) of a simulated case."""
     if name == "cylinder 160x80":
         NC, dms, support = omesh_structures[(160, 80)]
-        return NC, dms, support, H100_SMS
+        return NC, dms, support, H100_SMS, 4
+    if name == "heat 16, 1x1 blocks":
+        NC, dms, support = heat_structures[16]
+        return NC, dms, support, 9, 1
     g = np.random.default_rng(3)
     NC = 997
     dms = tuple(int(d) for d in tb._norm_offsets(
         g.integers(-3 * NC, 3 * NC, 6), NC)) + (0, 130)
     support = ((0, NC),) * 5 + ((10, 40), (0, NC), (500, 997))
-    return NC, dms, support, 23
+    return NC, dms, support, 23, 4
 
 
 @pytest.mark.parametrize("sweeps", [0, 1, 2, 6])
-@pytest.mark.parametrize("name", ["cylinder 160x80", "synthetic"])
-def test_schedule_equals_the_twin(omesh_structures, name, sweeps):
-    NC, dms, support, n_blocks = _case(name, omesh_structures)
-    dinv, dn, v = _inputs(NC, len(dms), seed=sweeps, support=support)
-    p = bk.bsgs_launch_plan(NC, 4, torch.float64, H100_SMEM, n_blocks)
+@pytest.mark.parametrize("name", ["cylinder 160x80", "synthetic",
+                                  "heat 16, 1x1 blocks"])
+def test_schedule_equals_the_twin(omesh_structures, heat_structures, name,
+                                  sweeps):
+    NC, dms, support, n_blocks, V = _case(name, omesh_structures,
+                                          heat_structures)
+    dinv, dn, v = _inputs(NC, len(dms), seed=sweeps, support=support, V=V)
+    p = bk.bsgs_launch_plan(NC, 4, torch.float64, H100_SMEM, n_blocks, V)
     waits = bk.bsgs_block_waits(bk.bsgs_block_deps(NC, p.chunk, p.blocks,
                                                    dms, support))
     want = bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)

@@ -1,5 +1,8 @@
 """The CUDA kernels (banded_apply, the fused bsgs apply, row_set) against
-their plain PyTorch twins, on the card.
+their plain PyTorch twins, on the card. The banded kernels at both block
+sizes they are built for: the flow equations' 4x4 blocks and the scalar
+diffusion's 1x1 blocks (the `_v1` tests, on the heat equation's operators
+and on random ones).
 
 Needs a CUDA card and nvcc: marked `gpu`, and each test skips when
 torch.cuda.is_available() is false. Imports no JAX, so it runs where JAX is
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from fvens_tpu_torch.cases import model_problems as mp
 from fvens_tpu_torch.cases.bench_case import bench_solver
 from fvens_tpu_torch.cases.casesolvers import initial_state
 from fvens_tpu_torch.solver import banded as tb
@@ -48,6 +52,18 @@ def _ops(dev, dtype, mesh=(64, 16)):
     _, _, ops = solver.step_operators(cm, u0, 500.0)
     assert ops.D.dtype == dtype
     return cm, ops
+
+
+def _heat_ops(dev, dtype, n=64):
+    """The heat equation's banded step-0 operators (V = 1) on
+    unit_square(n), at `dtype` (f32: the mixed-precision Krylov system)."""
+    solver, mesh = mp.heat_solver(dev, n, False, banded=True, pc="bsgs",
+                                  pc_sweeps=6,
+                                  mixed_precision=dtype == torch.float32)
+    u0 = torch.zeros((mesh.NC, 1), dtype=torch.float64, device=dev)
+    _, _, ops = solver.step_operators(mesh, u0, solver.cfg.cfl_init)
+    assert ops.D.dtype == dtype and ops.D.shape[1:] == (1, 1)
+    return mesh, ops
 
 
 def _rel_err(a, b):
@@ -99,6 +115,37 @@ def test_kernel_operators_match_twin_operators(cuda, dtype):
     assert _rel_err(z, pc_p(x)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_matches_twin_on_step_operators_v1(cuda, dtype):
+    """The heat equation's matvec (K = 5 with the diagonal), D^-1 v
+    (K = 1) and a sweep (K = 4) with 1x1 blocks."""
+    mesh, ops = _heat_ops(cuda, dtype)
+    offs = ops.bl.offsets
+    bands5, d5 = bk.matvec_bands(ops.D, ops.Bt, offs)
+    (bands1, d1), (bandsn, dms_n) = bk.bsgs_bands(ops.Dinv, ops.DNbt, offs)
+    assert bands5.shape[:3] == (5, 1, 1) and bandsn.shape[:3] == (4, 1, 1)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (mesh.NC, 1))).to(cuda, dtype)
+    base = bk.banded_apply_plain(bands1, x, d1)
+    for bands, dms, sign, b in ((bands5, d5, 1.0, None),
+                                (bands1, d1, 1.0, None),
+                                (bandsn, dms_n, -1.0, base)):
+        n0 = bk.banded_apply.launches
+        y = bk.banded_apply(bands, x, dms, sign, b)
+        torch.cuda.synchronize()
+        assert bk.banded_apply.launches == n0 + 1
+        assert y.shape == (mesh.NC, 1) and y.dtype == dtype and y.is_cuda
+        assert _rel_err(y, bk.banded_apply_plain(bands, x, dms, sign, b)) \
+            <= TOL[dtype]
+    pc_k = bk.make_banded_bsgs_kernel(ops.Dinv, ops.DNbt, offs, 6,
+                                      ops.bl.support)
+    pc_s = bk.make_banded_bsgs_sequence(ops.Dinv, ops.DNbt, offs, 6)
+    z = pc_k(x)
+    assert torch.equal(z, pc_s(x))
+    assert _rel_err(z, tb.make_banded_bsgs(ops.Dinv, ops.DNbt, offs, 6)(x)) \
+        <= TOL[dtype]
+
+
 @pytest.mark.parametrize("NC,K", [(1, 1), (129, 8), (1000, 6)])
 def test_kernel_any_size_and_shift(cuda, NC, K):
     """Ragged last block, K up to 8, shifts beyond +-NC/2 and duplicates."""
@@ -111,6 +158,23 @@ def test_kernel_any_size_and_shift(cuda, NC, K):
     assert _rel_err(y, bk.banded_apply_plain(bands, x, dms, -1.0, b)) <= 1e-12
 
 
+@pytest.mark.parametrize("NC,K", [(1, 1), (129, 8), (1000, 6),
+                                  (262_144, 5)])
+def test_kernel_any_size_and_shift_v1(cuda, NC, K):
+    """1x1 blocks: ragged last block, K up to 8, shifts beyond +-NC/2 and
+    duplicates; every row of x is one scalar."""
+    g = np.random.default_rng(NC + 1)
+    bands = torch.from_numpy(g.standard_normal((K, 1, 1, NC))).to(cuda)
+    x = torch.from_numpy(g.standard_normal((NC, 1))).to(cuda)
+    b = torch.from_numpy(g.standard_normal((NC, 1))).to(cuda)
+    dms = tuple(int(d) for d in g.integers(-2 * NC, 2 * NC, K))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        B, X, Bb = (t.to(dtype) for t in (bands, x, b))
+        y = bk.banded_apply(B, X, dms, -1.0, Bb)
+        assert y.shape == (NC, 1)
+        assert _rel_err(y, bk.banded_apply_plain(B, X, dms, -1.0, Bb)) <= tol
+
+
 def test_kernel_refuses_bad_input(cuda):
     bands = torch.zeros(2, 4, 4, 8, device=cuda)
     with pytest.raises(ValueError):
@@ -118,19 +182,25 @@ def test_kernel_refuses_bad_input(cuda):
     with pytest.raises(TypeError):
         bk.banded_apply(bands, torch.zeros(8, 4, device=cuda,
                                            dtype=torch.float64), (0, 1))
+    with pytest.raises(ValueError):                             # V = 3
+        bk.banded_apply(torch.zeros(2, 3, 3, 8, device=cuda),
+                        torch.zeros(8, 3, device=cuda), (0, 1))
+    with pytest.raises(ValueError):                             # V = 1, x V 4
+        bk.banded_apply(torch.zeros(2, 1, 1, 8, device=cuda),
+                        torch.zeros(8, 4, device=cuda), (0, 1))
 
 
-def _bsgs_inputs(dev, dtype, NC, K=bk.MAX_BANDS, seed=0):
-    """Random D^-1 (1, 4, 4, NC), D^-1 N (K, 4, 4, NC) scaled so that a
+def _bsgs_inputs(dev, dtype, NC, K=bk.MAX_BANDS, seed=0, V=4):
+    """Random D^-1 (1, V, V, NC), D^-1 N (K, V, V, NC) scaled so that a
     sweep contracts, shifts normalized into (-NC/2, NC/2] with a duplicate
-    (as the O-mesh seam bands have), and v (NC, 4)."""
+    (as the O-mesh seam bands have), and v (NC, V)."""
     g = np.random.default_rng(seed + NC)
-    dinv = g.standard_normal((1, 4, 4, NC)) / 4
-    dn = g.standard_normal((K, 4, 4, NC)) * (0.5 / (4 * K))
+    dinv = g.standard_normal((1, V, V, NC)) / V
+    dn = g.standard_normal((K, V, V, NC)) * (0.5 / (V * K))
     dms = list(tb._norm_offsets(g.integers(-2 * NC, 2 * NC, K), NC))
     if K > 2:
         dms[-1] = dms[1]
-    v = g.standard_normal((NC, 4))
+    v = g.standard_normal((NC, V))
 
     def put(a):
         return torch.from_numpy(a).to(dev, dtype)
@@ -156,6 +226,52 @@ def test_bsgs_fused_equals_sequence(cuda, dtype, NC):
             assert z.shape == (NC, 4) and z.dtype == dtype and z.is_cuda
             assert torch.equal(z, zs), (K, sweeps)
             assert _rel_err(z, zp) <= TOL[dtype], (K, sweeps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("NC", [1, 129, 1000, 12_800, 262_144])
+def test_bsgs_fused_equals_sequence_v1(cuda, dtype, NC):
+    """1x1 blocks, every K 1-8 and sweeps 0-6: one launch, equal to the
+    sequence value for value, within TOL of the twin."""
+    dinv, dn8, dms8, v = _bsgs_inputs(cuda, dtype, NC, V=1)
+    for K in range(1, bk.MAX_BANDS + 1):
+        dn, dms = dn8[:K], dms8[:K]
+        for sweeps in range(7):
+            zs = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+            zp = bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)
+            f0, n0 = bk.bsgs_apply.launches, bk.banded_apply.launches
+            z = bk.bsgs_apply(dinv, dn, dms, sweeps, v)
+            torch.cuda.synchronize()
+            assert bk.bsgs_apply.launches == f0 + 1
+            assert bk.banded_apply.launches == n0
+            assert z.shape == (NC, 1) and z.dtype == dtype and z.is_cuda
+            assert torch.equal(z, zs), (K, sweeps)
+            assert _rel_err(z, zp) <= TOL[dtype], (K, sweeps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsgs_residency_cases_v1(cuda, dtype):
+    """1x1 blocks with all cells resident, some, none (forced through the
+    plan's shared memory; the shared tier arrives by TMA), and the card's
+    own plan at the 512x512 heat equation's 262,144 cells: none (its four
+    bands fit in L2)."""
+    K, sweeps = 4, 6
+    for NC in (12_800, 262_144):
+        dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K, V=1)
+        blocks = bk.bsgs_device_limits(cuda)["n_blocks"]
+        per_cell = bk.bsgs_cell_bytes(K, dtype, 1)
+        a = bk.bsgs_align(dtype)
+        chunk = -(-(-(-NC // blocks)) // a) * a
+        want = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+        for smem, n_res in ((16 + chunk * per_cell, chunk),
+                            (16 + chunk // 2 * per_cell, chunk // 2 // a * a),
+                            (0, 0)):
+            app = bk.BsgsApply(dinv, dn, dms, sweeps, smem_bytes=smem)
+            assert app.plan.chunk == chunk and app.plan.n_res == n_res
+            assert torch.equal(app(v), want), (NC, n_res)
+        app = bk.BsgsApply(dinv, dn, dms, sweeps)
+        assert app.plan.n_res == 0 and app.plan.smem_bytes == 0
+        assert torch.equal(app(v), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -274,6 +390,31 @@ def test_bsgs_skips_bands_outside_their_support(cuda, dtype, NC):
         bk.BsgsApply(dinv, dn, dms, sweeps, [(0, NC + 1)] * 6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("NC", [129, 12_800, 262_144])
+def test_bsgs_skips_bands_outside_their_support_v1(cuda, dtype, NC):
+    """1x1 bands zero outside a cell range, with their supports given: the
+    kernel skips them there, with and without a shared tier, and still
+    equals the sequence."""
+    K, sweeps = 6, 6
+    dinv, dn, dms, v = _bsgs_inputs(cuda, dtype, NC, K, V=1)
+    ring = max(NC // 40, 1)
+    support = [(0, NC)] * 4 + [(0, ring), (NC - ring, NC)]
+    support[2] = (ring, NC)
+    for k, (lo, hi) in enumerate(support):
+        dn[k, :, :, :lo] = 0
+        dn[k, :, :, hi:] = 0
+    want = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+    per_cell = bk.bsgs_cell_bytes(4, dtype, 1)
+    for smem in (None, 0, 16 + 64 * per_cell):
+        app = bk.BsgsApply(dinv, dn, dms, sweeps, support, smem_bytes=smem)
+        assert torch.equal(app(v), want), smem
+    assert app.plan.n_res == min(64, app.plan.chunk) // bk.bsgs_align(
+        dtype) * bk.bsgs_align(dtype)
+    with pytest.raises(ValueError):
+        bk.BsgsApply(dinv, dn, dms, sweeps, support[:5])
+
+
 def test_bsgs_refuses_bad_input(cuda):
     """Bad operands raise before a launch; a grid or shared memory the card
     cannot take makes the launch fail, and the wrapper raises (no fallback
@@ -289,6 +430,12 @@ def test_bsgs_refuses_bad_input(cuda):
         bk.bsgs_apply(dinv, dn, dms[:5], 6, v)               # a shift short
     with pytest.raises(ValueError):
         bk.bsgs_apply(dinv[:, :, :, :-1], dn, dms, 6, v)     # dinv's NC
+    d3, n3, m3, v3 = _bsgs_inputs(cuda, torch.float32, 129, 4, V=3)
+    with pytest.raises(ValueError):
+        bk.bsgs_apply(d3, n3, m3, 6, v3)                     # V = 3
+    d1, n1, m1, v1 = _bsgs_inputs(cuda, torch.float32, 129, 4, V=1)
+    with pytest.raises(ValueError):
+        bk.bsgs_apply(d1, n1, m1, 6, v1.expand(129, 4).contiguous())
     n0 = bk.bsgs_apply.launches
     with pytest.raises(RuntimeError):
         bk.bsgs_apply(dinv, dn, dms, 6, v, n_blocks=12_800)  # grid too large

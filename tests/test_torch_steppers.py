@@ -11,7 +11,8 @@ scalar-diffusion space against the JAX package's, at f64 on the CPU.
     in [1.9, 2.1] on triangles and quads, explicit matching implicit), with
     each error equal to the JAX package's to 1e-8 relative; the banded V = 1
     system on the CPU (the plain twins) against the JAX package's banded
-    run, and its refusal where the CUDA kernels would take it;
+    run, also through the CUDA kernels' wrappers (which take the twins on
+    CPU tensors);
   - UnsteadyFlowCase: the twin of tests/test_unsteady.py's ctrl case, and
     the CLI on the committed cylinder-explicit.ctrl against the JAX CLI's
     printed summary.
@@ -43,6 +44,7 @@ from fvens_tpu_torch.cases.casesolvers import (UnsteadyFlowCase, build_space,
 from fvens_tpu_torch.cases.convertformat import write_gmsh2
 from fvens_tpu_torch.io_config import parse_control_file
 from fvens_tpu_torch.mesh import compile_mesh
+from fvens_tpu_torch.solver import banded_kernels as bk
 from fvens_tpu_torch.solver.steady import SteadyForwardEuler, ToleranceError
 from fvens_tpu_torch.solver.unsteady import TVDRK_COEFFS, TVDRKSolver
 
@@ -163,11 +165,14 @@ def test_heat_explicit_matches_implicit_and_jax():
     assert abs(e_exp - want) <= 1e-8 * want
 
 
-def test_heat_banded_v1_matches_jax_and_refuses_the_kernels(monkeypatch):
+def test_heat_banded_v1_matches_jax_through_the_kernels(monkeypatch):
     """banded=True, bsgs x6, with 1x1 blocks: the JAX package runs its XLA
     banded operators (its Pallas kernels never run off a TPU); the port's
-    plain twins match it on the CPU. Where the port would launch its CUDA
-    kernels (4x4 blocks only) the step raises NotImplementedError."""
+    plain twins match it on the CPU. Where the port launches its CUDA
+    kernels (_kernel_on true, as on the card) every step goes through the
+    kernels' wrappers, BandedApply (the matvec) and BsgsApply (the fused
+    bsgs apply), with V = 1 operands, and matches it as well: on CPU
+    tensors each wrapper takes its plain twin."""
     from fvens_tpu.config import (BCSpec, LinearSolverConfig,
                                   NonlinearUpdateConfig, PseudoTimeConfig)
     from fvens_tpu.fv.diffusion import DiffusionFV
@@ -192,8 +197,23 @@ def test_heat_banded_v1_matches_jax_and_refuses_the_kernels(monkeypatch):
     assert abs(err - want) <= 1e-8 * want
     psolver, mesh = mp.heat_solver("cpu", 16, False, **BANDED)
     monkeypatch.setattr(type(psolver), "_kernel_on", lambda self, x: True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        psolver.solve(mesh, torch.zeros((mesh.NC, 1), dtype=torch.float64))
+    calls = []
+    for cls in (bk.BandedApply, bk.BsgsApply):
+        def record(self, v, *a, _call=cls.__call__, _name=cls.__name__):
+            calls.append((_name, self.V, tuple(v.shape)))
+            return _call(self, v, *a)
+        monkeypatch.setattr(cls, "__call__", record)
+    ku, kinfo = psolver.solve(mesh, torch.zeros((mesh.NC, 1),
+                                                dtype=torch.float64))
+    assert (kinfo.steps, kinfo.total_lin_iters) == (jinfo.steps,
+                                                    jinfo.total_lin_iters)
+    assert abs(mp.heat_error(mesh, ku) - want) <= 1e-8 * want
+    its = kinfo.total_lin_iters
+    # classic GMRES: one matvec per Krylov iteration and per cycle, one
+    # fused bsgs apply per Krylov iteration
+    assert calls.count(("BandedApply", 1, (256, 1))) == its + kinfo.steps
+    assert calls.count(("BsgsApply", 1, (256, 1))) == its
+    assert len(calls) == 2 * its + kinfo.steps
 
 
 UNSTEADY_CTRL = """
