@@ -1,12 +1,19 @@
 """The benchmark solve: laminar viscous NACA0012, banded implicit steady.
 
-The port's twin of the JAX package's bench.py:run_solve (single phase):
+The port's twin of the JAX package's bench.py:run_solve:
 M 0.5, Re 5000, Roe flux, weighted least-squares gradients, unlimited
 LINEAR reconstruction, adiabatic wall + inflow/outflow; backward-Euler
 pseudo-time with the exponential CFL ramp 500 -> 5000 to an ABSOLUTE
 residual of 1e-10; f32 Jacobian and Krylov solve inside the f64 residual
 and update; FGMRES(90) at rtol 1e-2 preconditioned by 6 banded block-Jacobi
 sweeps (pc="bsgs", LinearSolverConfig.banded=True).
+
+With `two_phase` (an absolute residual gate) the solve is precision
+scheduled, bench.py:run_solve(two_phase=)'s form (cases/precision.py): an
+all-f32 phase A to the gate, then phase B in f64 from phase A's last CFL.
+bench.py runs this case on the gather path (its LinearSolverConfig.banded
+defaults to False); bench_solver's `banded=True` default stays for the
+banded kernels' sake, so pass banded=False to reproduce bench.py.
 
 The mesh is named by the caller: the generated O-mesh
 naca0012_omesh(ni, nj), by default (160, 80) = 12,800 cells, which the
@@ -63,11 +70,19 @@ def bench_solver(device, mesh=BENCH_MESH, mixed: bool = True,
     return solver, cm
 
 
-def run_solve(device, mesh=BENCH_MESH, **options):
+def run_solve(device, mesh=BENCH_MESH, two_phase: float = 0.0, **options):
     """Build the case on `device` and return (solve, mesh) where
     solve(max_steps=None) -> (u, SolveInfo) runs the solve from free stream.
-    `options` are bench_solver's."""
+    `options` are bench_solver's. With `two_phase` > 0 the solve is
+    precision scheduled with that gate and returns a precision.TwoPhaseInfo
+    (its totals phase A's steps plus phase B's; `max_steps` stops phase
+    B)."""
     solver, cm = bench_solver(device, mesh, **options)
+    if two_phase:
+        from .precision import solver_two_phase
+        scheduled = solver_two_phase(solver, cm, two_phase)
+        u32 = initial_state(solver.space, cm).to(torch.float32)
+        return (lambda max_steps=None: scheduled(u32, max_steps)), cm
 
     def solve(max_steps=None):
         u0 = initial_state(solver.space, cm)

@@ -27,6 +27,9 @@ finite-difference matvec; the FD shell with the Krylov solve in f64, since
 under mixed precision the JAX package's fails) and BSGS_RECYCLE (bsgs x6 with warm start and
 GCRO-DR recycling of 16 directions); OPTIONS names them all.
 
+With run_solve(two_phase=gate) the solve is precision scheduled as
+scripts/bench_bigmesh.py --two-phase schedules it (cases/precision.py).
+
 The mesh is named by the caller. At BIGMESH = 640x320 (204,800 cells,
 n = 819,200 vector elements) gmres takes its blocked path by itself, whose
 basis appends are the row_set kernel; the banded applies are the
@@ -108,25 +111,43 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run_solve(device, mesh=BIGMESH, warmup: bool = True, **lin) -> tuple:
+def run_solve(device, mesh=BIGMESH, warmup: bool = True,
+              two_phase: float = 0.0, **lin) -> tuple:
     """Build the case on `device` (`lin` as case_config's) and solve it from free stream, starter then main; with
     `warmup` twice, the first solve a warm-up that is not timed, as
     scripts/bench_bigmesh.py does (its wall time excludes first-use costs).
     Returns (u, report) with report a dict of the timed solve: the linear
-    solver, wall time (starter included), starter and main steps and Krylov
+    solver, wall time (starter included) and the main solve's, starter and
+    main steps and Krylov
     iterations, cell updates per second (cells x main steps / wall),
     absolute and relative residuals, the entropy error, whether gmres ran
     blocked, and `krylov_iters_all`, the Krylov iterations of every solve
-    (one basis append each on the blocked path)."""
+    (one basis append each on the blocked path).
+
+    `two_phase` > 0 (an absolute residual gate) schedules the precision as
+    scripts/bench_bigmesh.py --two-phase does (cases/precision.py): phase A
+    the whole case in f32 to the gate, then phase B in f64 from phase A's
+    last CFL; the main steps and Krylov iterations are phase A's main
+    solve's plus phase B's, the starter's are phase A's, and the report
+    adds `two_phase`, `phase_a` and `phase_b` (steps, Krylov iterations,
+    final absolute residual, wall; phase B's starting CFL)."""
     case, cm, u0 = build_case(device, *mesh, **lin)
+    if two_phase:
+        from .precision import case_two_phase
+        scheduled = case_two_phase(case, cm, two_phase)
+        u32 = u0.to(torch.float32)
     iters_all = 0
     for _ in range(2 if warmup else 1):
         _sync(device)
         t0 = time.perf_counter()
-        u, info = case.solve(cm, u0)
+        if two_phase:
+            u, info = scheduled(u32)
+            st = info.starter
+        else:
+            u, info = case.solve(cm, u0)
+            st = case.starter_info
         _sync(device)
         wall = time.perf_counter() - t0
-        st = case.starter_info
         iters_all += info.total_lin_iters + st.total_lin_iters
     n = 4 * cm.NC
     cl = case.cfg.linear
@@ -136,10 +157,12 @@ def run_solve(device, mesh=BIGMESH, warmup: bool = True, **lin) -> tuple:
         matrix_free=cl.matrix_free, matrix_free_fd=cl.matrix_free_fd,
         warm_start=cl.warm_start, deflation_k=cl.deflation_k,
         blocked=n >= linear._BLOCKED_N_THRESHOLD, wall_s=wall,
+        main_wall_s=info.walltime,
         starter_steps=st.steps, starter_krylov_iters=st.total_lin_iters,
         main_steps=info.steps, main_krylov_iters=info.total_lin_iters,
         converged=info.converged,
         cell_updates_per_s=cm.n_cells * info.steps / wall,
         abs_res=info.finalres, rel_res=info.finalres / info.initres,
         entropy=entropy_error(build_space(case.cfg), cm, u),
-        krylov_iters_all=iters_all)
+        krylov_iters_all=iters_all,
+        **(info.report() if two_phase else {}))

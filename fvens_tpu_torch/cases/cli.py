@@ -22,10 +22,13 @@ writes every output; the main solve's checkpoint holds the stacked
 per-part state. As in the JAX package, an unsteady control file runs on
 one device whatever --devices says.
 
+`--functionals_every` with `--devices` is accepted, as the JAX CLI accepts
+it, and has no effect: the functionals of a distributed run are evaluated
+once, on the gathered state, and rank 0 says so once.
+
 Refused with NotImplementedError: `--pipeline` (pipelined stepping is
 ported only once an H100 measurement shows the per-step host sync costs
-time), and `--functionals_every` with `--devices` (the functionals of a
-distributed run are evaluated once, on the gathered state).
+time).
 """
 
 from __future__ import annotations
@@ -86,6 +89,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 # the process group's timeout of a --devices run, s: the longest a rank
 # waits in one collective (rank 0 writes the outputs while the others wait)
 DEVICES_TIMEOUT = 1800.0
+# what rank 0 of a --devices run prints once when --functionals_every is set
+FUNCTIONALS_EVERY_NOTICE = (
+    "fvens_tpu_torch: --functionals_every has no effect with --devices: the "
+    "functionals are evaluated once, on the gathered state")
 
 
 def main(argv=None) -> int:
@@ -95,11 +102,6 @@ def main(argv=None) -> int:
             "not ported: pipelined host stepping (--pipeline); it is ported "
             "only once an H100 measurement shows the per-step host sync "
             "costs time (ROADMAP)")
-    if args.devices and args.functionals_every:
-        raise NotImplementedError(
-            "--functionals_every has no distributed form: a --devices run "
-            "evaluates the functionals once, on the gathered state")
-
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -165,6 +167,8 @@ def _run(args, comm=None) -> int:
     if args.functionals_every:
         cfg = dataclasses.replace(cfg,
                                   functionals_every=args.functionals_every)
+        if comm is not None:
+            say(FUNCTIONALS_EVERY_NOTICE)
     dtype = torch.float32 if args.f32 else torch.float64
 
     if not os.path.exists(cfg.mesh_file):

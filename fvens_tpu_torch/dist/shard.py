@@ -25,8 +25,11 @@ from functools import partial
 import numpy as np
 import torch
 
+from ..solver import jacobian as jacmod
 from ..solver.banded import banded_structure_parts
-from ..solver.linear import gmres, gmres_dr
+from ..solver.linear import (gmres, gmres_dr, make_bsr_matvec,
+                             make_preconditioner)
+from ..solver.relaxation import get_update_scheme
 from ..solver.steady import SteadyBackwardEuler
 from .comm import (Comm, Exchange, all_gather_rows, allreduce_min,
                    allreduce_sum, halo_exchange)
@@ -75,6 +78,56 @@ class ShardedFlow:
         r = rhs[:, -1]
         loc = ((r * r) * m.area * m.cell_mask).sum()
         return unew, float(torch.sqrt(allreduce_sum(self.comm, loc)))
+
+    def be_step(self, u, cfl: float, rtol: float, lin=None, nl=None):
+        """One distributed implicit pseudo-time step, the twin of the JAX
+        package's ShardedFlow.be_step_fn: the reference's parallel layout
+        (PETSc bjacobi: Schwarz across ranks, a strong smoother within).
+        On this rank's slab: the halo-exchanged residual, the part-local
+        Jacobian with the pseudo-time term, the part-local preconditioner
+        make_preconditioner(lin.pc, lin.pc_sweeps) with no halo coupling,
+        classic GMRES from zero whose matvec exchanges the Krylov vector at
+        every application and whose inner products are summed over the
+        ranks, then the update scheme nl.scheme applied locally. Lighter
+        than DistributedBackwardEuler._step: its factor omega is the update
+        scheme's alone (no cap, no positivity line search), `ok` does not
+        test du, and it has no warm start.
+
+        Returns (u', global residual as a host float, NaN unless the
+        residual, the new state and GMRES's residual are finite on every
+        rank, Krylov iterations)."""
+        from ..config import LinearSolverConfig, NonlinearUpdateConfig
+        lin = lin or LinearSolverConfig()
+        nl = nl or NonlinearUpdateConfig()
+        comm, m = self.comm, self.mesh
+        ex = partial(halo_exchange, self.exch)
+        mask = m.cell_mask[:, None]
+
+        u, rhs, dt = self._local_residual(u)
+        jac = self.space.assemble_jacobian(m, u)
+        jac = jacmod.add_pseudotime_term(m, jac, cfl, dt)
+        # part-local preconditioner (additive Schwarz, no halo coupling)
+        pc = make_preconditioner(m, jac, lin.pc, lin.pc_sweeps)
+        mv = make_bsr_matvec(m, jac)
+
+        def matvec(x):
+            return mv(ex(x)) * mask
+
+        du, iters, relres = gmres(
+            matvec, rhs * mask, torch.zeros_like(rhs),
+            lambda v: pc(v) * mask, restart=lin.restart,
+            maxiter=lin.maxiter, rtol=rtol, blocked=False,
+            allreduce=partial(allreduce_sum, comm))
+        omega = get_update_scheme(nl.scheme)(self.space.phy, u, du,
+                                             nl.min_factor)
+        unew = u + omega[:, None] * du * mask
+
+        loc = ((rhs[:, -1] ** 2) * m.area * m.cell_mask).sum()
+        res = torch.sqrt(allreduce_sum(comm, loc))
+        ok = (torch.isfinite(rhs).all() & torch.isfinite(unew).all()
+              & bool(np.isfinite(relres)))
+        ok = allreduce_min(comm, ok.to(torch.int32).reshape(1))
+        return unew, float(res) if int(ok) else float("nan"), iters
 
     def initial_state(self):
         """The free stream on every local slot."""

@@ -170,6 +170,15 @@ def residual_norm(mesh, rhs):
     return torch.sqrt(((r * r) * mesh.area * mesh.cell_mask).sum())
 
 
+def exp_residual_ramp(cflmin, cflmax, prevcfl, resratio, pup, pdown):
+    """The exponential residual-based CFL ramp (aodesolver.cpp:110-120),
+    host scalars: prevcfl * resratio^p, p = pup when the residual fell
+    (resratio > 1) else pdown, clamped to [cflmin, cflmax]."""
+    p = pup if resratio > 1.0 else pdown
+    newcfl = prevcfl * resratio ** p
+    return float(min(max(newcfl, cflmin), cflmax))
+
+
 def linear_ramp(cstart, cend, itstart, itend, itcur):
     """Step-indexed linear CFL ramp (SteadySolver::linearRamp,
     aodesolver.cpp:88-108), host scalars."""

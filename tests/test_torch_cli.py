@@ -214,7 +214,7 @@ def test_cli_needs_the_card_unless_told(runs, capsys):
 
 
 @pytest.mark.parametrize("refusal", ["unsteady", "devices", "pipeline",
-                                     "explicit"])
+                                     "explicit", "devices_functionals_every"])
 def test_cli_refuses_unported_paths(runs, refusal):
     """--pipeline is refused. --devices, refused until the distributed
     path was ported, and unsteady and explicit control files, refused
@@ -231,7 +231,11 @@ def test_cli_refuses_unported_paths(runs, refusal):
       - the cylinder ctrl made unsteady (TVD-RK2 at physical CFL 0.4 to
         t = 0.05) and made explicit (forward Euler at CFL 0.8: the starter
         to its 1e-1, the main solve to half its first residual): the same
-        steps, and the functionals to 1e-10."""
+        steps, and the functionals to 1e-10;
+      - --devices 2 with --functionals_every 5 added to both CLIs (the JAX
+        CLI accepts the pair and its distributed case never reads the
+        flag): both run and give what --devices 2 gives, to the same
+        tolerances, and the port prints its notice exactly once."""
     tmp, msh = runs["tmp"], runs["msh"]
     argv = ["--mesh_file", msh, "--log_every", "1"]
     if refusal == "pipeline":
@@ -239,10 +243,12 @@ def test_cli_refuses_unported_paths(runs, refusal):
             _run(cli.main, [_ctrl(tmp)] + argv + ["--pipeline", "--device",
                                                   "cpu"])
         return
-    if refusal == "devices":
+    if refusal.startswith("devices"):
         ctrl = _ctrl(tmp)
+        if refusal == "devices_functionals_every":
+            argv += ["--functionals_every", "5"]
         argv += ["-options_file", SOLVERC, "--devices", "2", "--history"]
-        hist = {k: os.path.join(tmp, f"devices_{k}.jsonl")
+        hist = {k: os.path.join(tmp, f"{refusal}_{k}.jsonl")
                 for k in ("jax", "port")}
         rc, jtext = _run(jax_cli.main, [ctrl] + argv + [
             hist["jax"], "--platform", "cpu"])
@@ -253,6 +259,8 @@ def test_cli_refuses_unported_paths(runs, refusal):
             capture_output=True, text=True, timeout=600)
         assert proc.returncode == 0, proc.stdout + proc.stderr
         assert "2 ranks (gloo)" in proc.stdout
+        assert proc.stdout.count(cli.FUNCTIONALS_EVERY_NOTICE) == (
+            refusal == "devices_functionals_every")
         j, t = parse_cli_output(jtext), parse_cli_output(proc.stdout)
         starter = re.compile(r"^\s*dBE \|\s+\d+ \|[^|]+\|[^|]+\|\s+(\d+) \|",
                              re.M)

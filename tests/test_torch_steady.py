@@ -329,3 +329,24 @@ def test_positivity_and_nan_guard_reported():
     u[3, 0] = float("nan")
     _, res, _ = solver._step(tm, u, 50.0, 1e-2)
     assert np.isnan(res)
+
+
+@pytest.mark.parametrize("resratio", [0.5, 1.0, 2.0, 1e-12, 1e12])
+@pytest.mark.parametrize("prevcfl", [50.0, 500.0, 4900.0])
+def test_exp_residual_ramp_matches_the_jax_function(resratio, prevcfl):
+    """exp_residual_ramp against the JAX package's, exactly (host floats):
+    the residual rising (ratio below 1, pdown), level (at 1) and falling
+    (above 1, pup), each from below, inside and near the top of [100,
+    5000], so that the ratios 1e-12 and 1e12 hit the lower and the upper
+    clamp from every start."""
+    from fvens_tpu.solver.steady import exp_residual_ramp as jax_ramp
+    from fvens_tpu_torch.solver.steady import exp_residual_ramp
+    args = (100.0, 5000.0, prevcfl, resratio, 0.3, 0.25)
+    got = exp_residual_ramp(*args)
+    assert isinstance(got, float)
+    assert got == jax_ramp(*args)
+    assert 100.0 <= got <= 5000.0
+    if resratio == 1e-12:
+        assert got == 100.0
+    if resratio == 1e12:
+        assert got == 5000.0

@@ -258,3 +258,29 @@ def solver_paths(comm) -> dict:
     """tests/test_torch_dist_solve.py's checks in one world."""
     return dict(banded=banded_steps(comm), krylov=krylov_options(comm),
                 history=history(comm))
+
+
+# (name, LinearSolverConfig fields, rtol) of the single distributed implicit
+# steps (ShardedFlow.be_step) held against the JAX package's be_step_fn:
+# the dry run's own, and a tighter solve under bsgs x2
+BE_STEPS = (("dryrun", dict(restart=20, maxiter=20, rtol=1e-1,
+                            rtol_adapt=False), 0.1),
+            ("bsgs", dict(restart=30, maxiter=30, rtol=1e-3,
+                          rtol_adapt=False, pc="bsgs", pc_sweeps=2), 1e-3))
+
+
+def be_steps(comm) -> dict:
+    """ShardedFlow.be_step on the dry run's f32 case (entry.dryrun_case)
+    from the free stream at CFL 50, robust_flow update, for each of
+    BE_STEPS: {name: (u gathered, res, iterations)}."""
+    from fvens_tpu_torch.entry import dryrun_case
+    space, md, bcs = dryrun_case(comm.size)
+    flow = ShardedFlow(space, partition_mesh(md, bcs, comm.size), comm,
+                       dtype=torch.float32)
+    out = {}
+    for name, lin, rtol in BE_STEPS:
+        u1, res, it = flow.be_step(
+            flow.initial_state(), 50.0, rtol, lin=LinearSolverConfig(**lin),
+            nl=NonlinearUpdateConfig(scheme="robust_flow"))
+        out[name] = (flow.gather_solution(u1), res, it)
+    return out
