@@ -36,13 +36,19 @@ wrappers with the launch counts zeroed just before it and read just after:
   - the other solver options at 640x320 on the gather path: the block
     ILU0, the aggregation multigrid, the line smoother, the matrix-free
     JVP and FD matvecs, and warm start with GCRO-DR recycling (row_set
-    once per Krylov iteration of blocked GMRES).
+    once per Krylov iteration of blocked GMRES);
+  - the device-resident stepping modes on the 640x320 banded cylinder:
+    pipelined stepping, chunks of device_steps = 8 and baked steps, each
+    step a CUDA graph whose Krylov iterations sit in IF nodes, through
+    K1, K1b, K2, the Givens kernel (csrc/givens_column.cu) and the IF
+    nodes' set-condition kernel (csrc/graph_if.cu).
 
 In order:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds csrc/banded_apply.cu, csrc/banded_bsgs.cu and csrc/row_set.cu
-     from the checkout, one nvcc each, all at once, and prints ptxas's
+  2. builds csrc/banded_apply.cu, csrc/banded_bsgs.cu, csrc/row_set.cu,
+     csrc/givens_column.cu and csrc/graph_if.cu from the checkout, one
+     nvcc each, all at once, and prints ptxas's
      registers, stack frame and spills for each kernel instantiation (one
      "ptxas" JSON line per library);
   3. holds each kernel against its plain PyTorch twin: banded_apply on the
@@ -267,13 +273,36 @@ limit.
      mini-solves' Krylov iterations within 10%), K1 launched on the
      banded step.
 
+ 23. I: device-resident stepping (solver/device_stepping.py). I5, the
+     Givens kernel against its twin bit for bit (f32 and f64, iterations
+     GIVENS_J of FGMRES(90), a NaN column, a dead call) and timed beside
+     its twin on the card and its bound; IF_NODES IF nodes replayed with
+     their predicate true and false (each body ran exactly when it held),
+     a dead node timed against the host's way of deciding (.item()). I1,
+     bigmesh_case.run_solve(pipeline=True) at 640x320, a warm-up and a
+     timed solve; I2, device_steps = 8 and bake_mesh, one timed solve
+     each; every burst, chunk and baked step queued under
+     torch.cuda.set_sync_debug_mode("error"). Each converged to 1e-10
+     with a finite state, its starter and main steps and Krylov
+     iterations within STEPPING_SLACK of step 4's single-step solve, and
+     with the launches counted on the card (solver/device_counts): per
+     Krylov iteration one row_set, one Givens update, K1b at least once,
+     K1 once or twice; ms per main step (with and without the graph
+     captures) and per Krylov iteration beside step 4's; traced main steps
+     (the host-controlled and the captured step, a chunk) with the device
+     busy share. I3, the three modes at STEPPING_CHECK_MESH against
+     JAX_BIGMESH_RECORD (pipeline) and JAX_STEPPING_RECORD; I4, the CLI
+     with --pipeline at CHECK_MESH against JAX_CLI_RECORD.
+
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
 kernel record (launches of banded_apply and banded_bsgs from the banded
 640x320 solve of step 4, of row_set from the gather 640x320 solve of step
-5, and each path's counts under launches_by_path, the CLI of step 12 and
-the paths of steps 15-22 among them, G1's, G2's and H2's summed over
-their ranks), and the one before that the seconds each phase took.
+5, of givens_column and graph_if from I1's pipelined solve, counted on the
+card, and each path's counts under launches_by_path, the CLI of step 12
+and the paths of steps 15-23 among them, G1's, G2's and H2's summed over
+their ranks, phase I's 640x320 paths counted on the card), and the one
+before that the seconds each phase took.
 """
 
 import contextlib
@@ -292,6 +321,14 @@ KERNELS = {                     # name: (source, the TPU kernel it replaces)
                     "fvens_tpu/solver/pallas_banded.py:107"),
     "row_set": ("fvens_tpu_torch/csrc/row_set.cu",
                 "fvens_tpu/solver/pallas_banded.py:254"),
+    # no pl.pallas_call: the JAX package's Givens update is XLA inside its
+    # FGMRES while loop, and its device-side control flow the loop itself
+    "givens_column": ("fvens_tpu_torch/csrc/givens_column.cu",
+                      "fvens_tpu/solver/linear.py:409 (rot fori_loop, no "
+                      "Pallas kernel)"),
+    "graph_if": ("fvens_tpu_torch/csrc/graph_if.cu",
+                 "fvens_tpu/solver/linear.py:424 (lax.while_loop, lax.cond "
+                 "at :471; no Pallas kernel)"),
 }
 TIMED_RUNS = 50
 # The least time of a kernel: its bytes (each input read once, each output
@@ -373,8 +410,8 @@ NACA_AGREE_STEPS = 20
 # within their time): the first NACA_AGREE_STEPS step for step,
 # then the relative residual within NACA_TRACK of the record's at each
 # NACA_CHECK_AT step
-NACA_CHECK_MAIN_STEPS = 300
-NACA_CHECK_AT = (100, 200, 300)
+NACA_CHECK_MAIN_STEPS = 200
+NACA_CHECK_AT = (100, 200)
 LIMITED_MAIN_STEPS = 20          # phase B2
 EXPLICIT_CTRL = "fvens_tpu_torch/cases/ctrl/cylinder-explicit.ctrl"
 EXPLICIT_MESH = (640, 320)       # phase C
@@ -518,19 +555,23 @@ PTXAS_BEFORE_V4 = {
 
 
 def build_kernels():
-    """The three CUDA libraries, one nvcc each, started together."""
+    """The five CUDA libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fvens_tpu_torch.solver import banded_kernels as bk
+    from fvens_tpu_torch.solver import givens_kernels as gk
+    from fvens_tpu_torch.solver import graph_if
     from fvens_tpu_torch.solver import rowset_kernels as rk
     t0 = time.perf_counter()
     loaders = {"banded_apply": bk.load_library,
                "banded_bsgs": bk.load_bsgs_library,
-               "row_set": rk.load_library}
+               "row_set": rk.load_library,
+               "givens_column": gk.load_library,
+               "graph_if": graph_if.load_library}
     with ThreadPoolExecutor(len(loaders)) as ex:
         jobs = {name: ex.submit(fn) for name, fn in loaders.items()}
         builds = {name: job.result() for name, job in jobs.items()}
-    print(f"build: {time.perf_counter() - t0:.2f} s for all three",
+    print(f"build: {time.perf_counter() - t0:.2f} s for all five",
           flush=True)
     for name, build in builds.items():
         print(f"  {name}: nvcc {build.seconds:.2f} s -> "
@@ -938,14 +979,22 @@ def bcsgs_steps(dev):
 
 def zero_counts():
     from fvens_tpu_torch.solver import banded_kernels as bk
+    from fvens_tpu_torch.solver import givens_kernels as gk
+    from fvens_tpu_torch.solver import graph_if
     from fvens_tpu_torch.solver import rowset_kernels as rk
     bk.banded_apply.launches = bk.bsgs_apply.launches = 0
-    rk.row_set.launches = 0
+    rk.row_set.launches = gk.givens_column.launches = 0
+    graph_if.GraphControl.launches = 0
 
 
 def read_counts() -> dict:
+    """The host launch counts of every kernel: a launch captured into a
+    graph counts once, at capture (phase I reads its own on the card)."""
     from fvens_tpu_torch.entry import kernel_launches
-    return kernel_launches()
+    from fvens_tpu_torch.solver import givens_kernels as gk
+    from fvens_tpu_torch.solver import graph_if
+    return dict(kernel_launches(), givens_column=gk.givens_column.launches,
+                graph_if=graph_if.GraphControl.launches)
 
 
 def fused_vs_sequence(dev):
@@ -1971,7 +2020,7 @@ def heat_path(dev):
 JAX_OPTIONS_RECORD = "records/jax_solver_options_history.json"
 OPTIONS_MESH = (640, 320)        # F1-F3: cylinder_omesh, 204,800 cells
 ILU_MAIN_STEPS = 40              # F1: the ilu0 main solve's cap
-OPTION_STEPS = 5                 # F2: main steps under each option but
+OPTION_STEPS = 3                 # F2: main steps under each option but
 JVP_STEPS = 2                    # the JVP's (5.0-5.6 s a step on an H100)
 F2_OPTIONS = ("amg", "bline", "mf-jvp", "mf-fd")
 AMG_REPEAT_STEPS = 3             # F2: amg steps run twice, bit for bit
@@ -3281,6 +3330,445 @@ def dist_phases(dev, paths: dict, cli_functionals: dict):
             cli.result()
 
 
+# ---------------------------------------------------------------------------
+# Phase I: device-resident stepping (solver/device_stepping.py): the step
+# as one device program, through an FGMRES whose control stays on the card
+# ---------------------------------------------------------------------------
+
+STEPPING_MODES = (("pipeline", {"pipeline": True}),
+                  ("device_steps=8", {"device_steps": 8}),
+                  ("bake_mesh", {"bake_mesh": True}))
+JAX_STEPPING_RECORD = "records/jax_stepping_modes_history.json"
+STEPPING_CHECK_MESH = (160, 80)
+STEPPING_AGREE = 20              # I3: main steps held to the record (1%)
+# I1, I2: the 640x320 modes' starter and main steps and Krylov iterations
+# within this share of phase 4's single-step solve of the same build (the
+# device-controlled GMRES rounds its Krylov update differently, and the
+# mixed-precision endgame parts there, as the JAX package's blocked and
+# classic runs part at 160x80: 54 and 49 main steps, 1,318 and 850 Krylov
+# iterations)
+STEPPING_SLACK = 0.25
+GIVENS_J = (0, 45, 89)           # I5: iterations of FGMRES(90) timed
+IF_NODES = 90                    # I5: IF nodes of the timed graph
+
+
+def device_launches(dev) -> dict:
+    """The launches counted on the card (solver/device_counts), under the
+    kernel record's names."""
+    from fvens_tpu_torch.solver import device_counts
+    n = device_counts.read(dev)
+    return {"banded_apply": n["banded_apply"], "banded_bsgs": n["bsgs_apply"],
+            "row_set": n["row_set"], "givens_column": n["givens_column"],
+            "graph_if": n["graph_if"]}
+
+
+def traced_busy(dev, fn) -> dict:
+    """fn() under torch.profiler: the traced wall (fn ends in a
+    synchronize), the device time of its kernels and their share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fvens_tpu_torch.cases.profile_step import _device_us, _on_device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ka = [e for e in prof.key_averages() if _on_device(e)]
+    busy = sum(_device_us(e) for e in ka) / 1e3
+    return dict(traced_wall_ms=wall, device_busy_ms=busy,
+                device_busy_share=busy / wall if wall else None,
+                kernels=sum(e.count for e in ka))
+
+
+_TRACE_STATE = {}                 # the starter's state the traces start at
+
+
+def step_traces(dev, case, cm, name: str) -> dict:
+    """Main steps from the starter's state at the main CFL, traced on the
+    case `name` ran (its main solver and programs, captured by its solve):
+    for the pipeline the host-controlled step and the captured step
+    (StepProgram), for device_steps one chunk (8 steps). The first call
+    runs the starter; the next start from its state."""
+    import torch
+    from fvens_tpu_torch.cases.casesolvers import build_space, initial_state
+    solver = case._main_solver
+    if "u" not in _TRACE_STATE:
+        _TRACE_STATE["u"] = case.execute_starter(
+            cm, initial_state(build_space(case.cfg), cm))
+    u = _TRACE_STATE["u"]
+    cfl, rtol = case.cfg.main.cfl_init, 0.1
+    lmesh, bl = cm.to(torch.float32), solver._banded(cm)
+    out = {}
+
+    def traced(name, fn):
+        """traced_busy of fn, which returns its Krylov iterations, with
+        them and the device ms per iteration."""
+        its = []
+        rec = traced_busy(dev, lambda: its.append(fn()))
+        rec.update(krylov_iters=its[0],
+                   device_ms_per_krylov_iter=rec["device_busy_ms"] / its[0])
+        out[name] = rec
+    if name == "pipeline":
+        traced("host-controlled step", lambda: solver._step(
+            cm, u, cfl, rtol, lmesh=lmesh, bl=bl)[2])
+        prog = solver._program("step", cm, lmesh, bl, u)
+        traced("captured step", lambda: int(prog(u, cfl, rtol, 1.0)[2]))
+        return out
+    chunk = solver._program("chunk", cm, lmesh, bl, u)
+    state = dict(res_best=float("inf"), stall=0, cfl=cfl, cfl_cap=1e300,
+                 rtol=rtol, rtol_floor=solver.lin.rtol, raise_relres=0.0,
+                 res=1.0, resold=1.0, initres=1.0)
+    du = torch.zeros_like(u)
+    steps = []
+
+    def run_chunk():
+        carry = chunk.run(u, du, u, **state)[0]
+        steps.append(carry["nsteps"])
+        return carry["iters"]
+    traced("chunk", run_chunk)
+    out["chunk"]["steps"] = steps[0]
+    return out
+
+
+def stepping_path(dev, name: str, stepping: dict, single: dict,
+                  warmup: bool) -> tuple:
+    """I1/I2: bigmesh_case.run_solve at 640x320 under `stepping`, with the
+    launches counted on the card from just before to just after (both
+    solves where `warmup`). Checks: converged to 1e-10 with a finite state;
+    starter and main steps and Krylov iterations within STEPPING_SLACK of
+    phase 4's single-step solve (`single`); per Krylov iteration one
+    row_set append and one Givens update of a device-form step, K1b at
+    least once and K1 at least once and fewer than twice (the iterations
+    of the pipeline's discarded speculative steps included; a program's
+    eager warm-up before its capture is not counted). Traces main
+    steps of the case (step_traces). Returns (report, timing and traces,
+    launches)."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.solver import device_counts
+    keep = {}
+    torch.cuda.synchronize()
+    device_counts.enable(dev)
+    try:
+        u, rep = bigmesh_case.run_solve(dev, warmup=warmup,
+                                        stepping=stepping, keep=keep)
+        torch.cuda.synchronize()
+        launches = device_launches(dev)
+    finally:
+        device_counts.disable()
+    its, dits = rep["krylov_iters_all"], rep["device_krylov_iters_all"]
+    # the pipeline's speculative steps discarded at convergence ran too
+    ran = its + rep["discarded_krylov_iters_all"]
+    dran = dits + rep["discarded_krylov_iters_all"]
+    net = rep["main_wall_s"] - rep["main_capture_s"]
+
+    def ms(wall, n):
+        return 1e3 * wall / n if n else None
+    timing = dict(
+        ms_per_main_step=ms(rep["main_wall_s"], rep["main_steps"]),
+        ms_per_main_step_net_of_capture=ms(net, rep["main_steps"]),
+        ms_per_krylov_iter=ms(net, rep["main_krylov_iters"]),
+        single_step=dict(
+            starter_steps=single["starter_steps"],
+            starter_krylov_iters=single["starter_krylov_iters"],
+            main_steps=single["main_steps"],
+            main_krylov_iters=single["main_krylov_iters"],
+            ms_per_main_step=ms(single["main_wall_s"], single["main_steps"]),
+            ms_per_krylov_iter=ms(single["main_wall_s"],
+                                  single["main_krylov_iters"])))
+    if name != "bake_mesh":
+        with phase(f"I: traced main steps ({name})"):
+            timing["traces"] = step_traces(dev, keep["case"], keep["mesh"],
+                                           name)
+    card_line(f"I cylinder 640x320 banded, {name}"
+              + (" (warm-up + timed)" if warmup else " (one timed solve)"),
+              dict(rep, **timing, launches=launches))
+    check(rep["converged"] and rep["abs_res"] <= bigmesh_case.TOL_ABS,
+          f"I {name}: the solve did not converge to {bigmesh_case.TOL_ABS}: "
+          f"{rep['abs_res']!r}")
+    check(u.dtype == torch.float64 and bool(torch.isfinite(u).all())
+          and np.isfinite(rep["entropy"]), f"I {name}: non-finite state")
+    for key in ("starter_steps", "starter_krylov_iters", "main_steps",
+                "main_krylov_iters"):
+        check(abs(rep[key] - single[key]) <= STEPPING_SLACK * single[key],
+              f"I {name}: {key} {rep[key]} not within "
+              f"{STEPPING_SLACK:.0%} of the single-step solve's "
+              f"{single[key]}")
+    check(dits > 0 and launches["givens_column"] == dran
+          and launches["row_set"] == ran and launches["banded_bsgs"] >= ran
+          and ran <= launches["banded_apply"] < 2 * ran
+          and launches["graph_if"] >= dran,
+          f"I {name}: launches {launches} for {ran} Krylov iterations run, "
+          f"{dran} of them in device-form steps "
+          f"({rep['discarded_krylov_iters_all']} in discarded ones)")
+    return rep, timing, launches
+
+
+def stepping_vs_record(dev) -> dict:
+    """I3: the 160x80 cylinder under each mode (its classic GMRES path,
+    which that size takes by itself) against the JAX package's CPU runs:
+    pipeline against the classic run of JAX_BIGMESH_RECORD (the JAX
+    package's pipelined steps are its single steps), device_steps = 8 and
+    bake_mesh against JAX_STEPPING_RECORD. The starter's steps exactly and
+    its Krylov iterations within 2%, the first STEPPING_AGREE main steps'
+    residuals within 1%; the main steps and Krylov iterations within 10%
+    of the range of the JAX package's runs of this mesh (blocked and
+    classic GMRES, each option: 49-54 steps, 850-1,318 iterations; the
+    mixed-precision endgame parts near the f32 floor, so no run is held
+    to one of them). Returns the host launch counts."""
+    import torch
+    from fvens_tpu_torch.cases import bigmesh_case
+    mesh = f"cylinder_omesh{STEPPING_CHECK_MESH}"
+    classic = next(r for r in cylinder_record(mesh)
+                   if not r["blocked_gmres"])
+    recs = {"pipeline": classic}
+    for r in _load(JAX_STEPPING_RECORD)["runs"]:
+        recs[f"{r['option']}={r['value']}" if r["option"] == "device_steps"
+             else r["option"]] = r
+    runs = cylinder_record(mesh) + _load(JAX_STEPPING_RECORD)["runs"]
+    span = {k: (min(r["main"][k] for r in runs),
+                max(r["main"][k] for r in runs))
+            for k in ("steps", "krylov_iters")}
+    n0 = read_counts()
+    out = {}
+    for name, stepping in STEPPING_MODES:
+        rec = recs[name]
+        case, cm, u0 = bigmesh_case.build_case(dev, *STEPPING_CHECK_MESH,
+                                               stepping=stepping)
+        u, info = case.solve(cm, u0)
+        torch.cuda.synchronize()
+        st = case.starter_info
+        got = dict(starter=(st.steps, st.total_lin_iters),
+                   main=(info.steps, info.total_lin_iters),
+                   final=info.finalres)
+        want = dict(starter=(rec["starter"]["steps"],
+                             rec["starter"]["krylov_iters"]),
+                    main=(rec["main"]["steps"], rec["main"]["krylov_iters"]))
+        out[name] = dict(got, record=want)
+        print(f"I3 {mesh} {name}: {json.dumps(out[name])}", flush=True)
+        check(info.converged and bool(torch.isfinite(u).all()),
+              f"I3 {name}: the {mesh} solve did not converge")
+        check(st.steps == want["starter"][0]
+              and abs(st.total_lin_iters - want["starter"][1])
+              <= 0.02 * want["starter"][1],
+              f"I3 {name}: the starter departs from the JAX package's")
+        ref = rec["main"]["history"]
+        check(len(info.history) >= STEPPING_AGREE,
+              f"I3 {name}: only {len(info.history)} main steps")
+        for k in range(STEPPING_AGREE):
+            res_ref, h = ref[k][1], info.history[k]
+            check(abs(h[2] - res_ref) <= 0.01 * res_ref,
+                  f"I3 {name} main step {k + 1}: residual {h[2]!r} vs "
+                  f"{res_ref!r}")
+        for got_n, key in ((info.steps, "steps"),
+                           (info.total_lin_iters, "krylov_iters")):
+            lo, hi = span[key]
+            check(0.9 * lo <= got_n <= 1.1 * hi,
+                  f"I3 {name}: main {key} {got_n} not within 10% of the "
+                  f"JAX package's {lo}-{hi}")
+    return count_diff(n0, read_counts())
+
+
+def stepping_cli(dev) -> dict:
+    """I4: the port's CLI with --pipeline on the committed cylinder ctrl at
+    CHECK_MESH, against the JAX package's CLI run of the same files
+    (JAX_CLI_RECORD, unpipelined: the JAX package's pipelined steps are its
+    single steps): the starter's steps, the first AGREE_STEPS main steps
+    (Krylov iterations within 1, residuals within 1%), the totals within
+    10%, the functionals within 1e-6."""
+    import tempfile
+    rec = _load(JAX_CLI_RECORD)
+    ni, nj = CHECK_MESH
+    n0 = read_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        msh = os.path.join(tmp, "cylinder.msh")
+        hist = os.path.join(tmp, "history.jsonl")
+        write_cylinder_msh(msh, ni, nj)
+        run = run_cli([CLI_CTRL, "--mesh_file", msh, "-options_file",
+                       CLI_SOLVERC, "--device", dev.type, "--log_every", "1",
+                       "--pipeline", "--history", hist],
+                      f"cli_{ni}x{nj}_pipeline.log")
+        rows = read_jsonl(hist) if run["rc"] == 0 else []
+    check(run["rc"] == 0, f"I4: the --pipeline CLI run exited {run['rc']}")
+    ref = rec["main"]
+    print(f"I4 cli {ni}x{nj} --pipeline: starter "
+          f"{len(run['starter_iters'])} steps, main {run['main_steps']} / "
+          f"{run['main_iters']}, wall {run['wall_s']:.2f} s; the JAX "
+          f"package's: starter {rec['starter']['steps']}, main "
+          f"{ref['steps']} / {ref['krylov_iters']}", flush=True)
+    check(len(run["starter_iters"]) == rec["starter"]["steps"],
+          "I4: the starter departs from the JAX package's")
+    check(len(rows) >= AGREE_STEPS, f"I4: only {len(rows)} main steps")
+    for r, q in zip(rows[:AGREE_STEPS], ref["history"]):
+        check(abs(r["lin_iters"] - q["lin_iters"]) <= 1
+              and abs(r["absres"] - q["absres"]) <= 0.01 * q["absres"],
+              f"I4 main step {r['step']}: iterations {r['lin_iters']} vs "
+              f"{q['lin_iters']}, residual {r['absres']!r} vs "
+              f"{q['absres']!r}")
+    for got, key in ((run["main_steps"], "steps"),
+                     (run["main_iters"], "krylov_iters")):
+        check(abs(got - ref[key]) <= 0.1 * ref[key],
+              f"I4: main {key} {got} not within 10% of {ref[key]}")
+    check(same_functionals(run, rec["functionals"], 1e-6),
+          "I4: the functionals differ from the JAX package's")
+    return count_diff(n0, read_counts())
+
+
+def givens_checks(dev) -> list:
+    """I5: the Givens kernel against its plain twin on the card, bit for bit,
+    at f32 (the main path's Krylov dtype) and f64, at iterations GIVENS_J of
+    FGMRES(90), with a NaN column and a dead call; each timed (a call: CUDA
+    events, median of TIMED_RUNS; device time: profile_step.device_ms; the
+    twin on the card's tensors too; less the predicate's reset)."""
+    import torch
+    from fvens_tpu_torch.cases.profile_step import device_ms
+    from fvens_tpu_torch.solver import givens_kernels as gk
+    rng = np.random.default_rng(4)
+    m = 90
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        for j in GIVENS_J:
+            for nan, live in ((False, True), (True, True), (False, False)):
+                theta = rng.uniform(-np.pi, np.pi, m)
+                cs, sn = np.cos(theta), np.sin(theta)
+                cs[j:] = sn[j:] = 0
+                g = np.zeros(m + 1)
+                g[:j + 1] = rng.standard_normal(j + 1)
+                h = rng.standard_normal(j + 1) * 10.0 ** rng.uniform(
+                    -4, 4, j + 1)
+                if nan:
+                    h[j // 2] = np.nan
+                t = lambda a: torch.tensor(np.asarray(a), dtype=dtype,
+                                           device=dev)
+                st = dict(h=t(h), hn=t(abs(rng.standard_normal())),
+                          H=torch.full((m + 1, m), 7.0, dtype=dtype,
+                                       device=dev),
+                          cs=t(cs), sn=t(sn), g=t(g), res=t(-1.0),
+                          tol=t(abs(g[0]) * 1e-3),
+                          live=torch.tensor(live, device=dev),
+                          iters=torch.tensor(3, dtype=torch.int32,
+                                             device=dev))
+                names = ("h", "hn", "H", "cs", "sn", "g", "res", "tol",
+                         "live", "iters")
+                cpu = {k: v.cpu() for k, v in st.items()}
+                gk.givens_column(st["h"], st["hn"], j,
+                                 *(st[k] for k in names[2:]))
+                gk.givens_plain(cpu["h"], cpu["hn"], j,
+                                *(cpu[k] for k in names[2:]))
+                torch.cuda.synchronize()
+                for k in ("H", "cs", "sn", "g", "res", "live", "iters"):
+                    check(np.array_equal(st[k].cpu().numpy(),
+                                         cpu[k].numpy(), equal_nan=True),
+                          f"givens_column differs from its twin: {k}, "
+                          f"j={j}, {dtype}, nan={nan}, live={live}")
+                if nan or not live:
+                    continue
+                st["live"].fill_(True)
+                args = [st["h"], st["hn"], j] + [st[k] for k in names[2:]]
+
+                def kern(a=args):
+                    a[-2].fill_(True)
+                    gk.givens_column(*a)
+
+                def plain(a=args):
+                    a[-2].fill_(True)
+                    gk.givens_plain(*a)
+                fill = event_ms(lambda a=args: a[-2].fill_(True))
+                fill_dev = device_ms(lambda a=args: a[-2].fill_(True), n=200)
+                isz = st["H"].element_size()
+                # each input read once (h, hn, cs and sn up to j, g[j],
+                # tol, live, iters), each output written once (H's column,
+                # cs[j], sn[j], g[j:j+2], res, live, iters)
+                nbytes = (j + 2 + 2 * j + 2) * isz + 5 + (m + 1 + 5) * isz + 5
+                row = dict(dtype=str(dtype)[6:], j=j, m=m, max_abs_err=0.0,
+                           ms=event_ms(kern) - fill,
+                           device_ms=device_ms(kern, n=200) - fill_dev,
+                           plain_ms=event_ms(plain) - fill)
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes, 6 * j + 12, row["dtype"])
+                rows.append(row)
+                print("givens_column check", json.dumps(row), flush=True)
+    return rows
+
+
+def graph_if_checks(dev) -> dict:
+    """I5: IF_NODES IF nodes captured with graph_if (each body one small
+    add): replayed with the predicate true each body runs once, false none
+    does; the time per node of a dead iteration (replays with the
+    predicate false) against the host's way of deciding, reading the
+    predicate back (a synchronizing .item() per decision)."""
+    import torch
+    from fvens_tpu_torch.solver.device_stepping import capture_graph
+    pred = torch.tensor(True, device=dev)
+    y = torch.zeros((), device=dev)
+
+    def body(ctl):
+        for _ in range(IF_NODES):
+            ctl.run_if(pred, lambda _: y.add_(1.0))
+        return ()
+    graph, pool, _ = capture_graph(dev, body)
+    graph.replay()
+    pred.fill_(False)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = abs(float(y) - IF_NODES)
+    check(err == 0, f"graph_if: {float(y)} bodies ran, not {IF_NODES}")
+    dead = event_ms(graph.replay) / IF_NODES
+    pred.fill_(True)
+    live = event_ms(graph.replay) / IF_NODES
+
+    def host_decision():
+        if pred.item():
+            y.add_(1.0)
+    t = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        host_decision()
+        t.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(nodes=IF_NODES, max_abs_err=err, ms=dead,
+               live_node_ms=live, plain_ms=float(np.median(t)),
+               plain="the host's decision: pred.item() and a launch")
+    rec["bound_ms"], rec["bound_by"] = bound(1, 0, "float32")
+    print("graph_if check", json.dumps(rec), flush=True)
+    del graph, pool
+    return rec
+
+
+def stepping_phases(dev, paths: dict, single: dict) -> dict:
+    """Phase I. Returns the Givens and IF-node measurements and I1's
+    launches for the kernel record."""
+    import torch
+    torch.cuda.empty_cache()
+    with phase("I5: givens_column and graph_if against their twins"):
+        grows = givens_checks(dev)
+        ifrec = graph_if_checks(dev)
+    reports = {}
+    for name, stepping in STEPPING_MODES:
+        warmup = name == "pipeline"
+        title = f"I cylinder 640x320 banded, {name}"
+        with phase(f"I1/I2: {title}" + (" (warm-up + timed)" if warmup
+                                        else "")):
+            rep, timing, launches = stepping_path(dev, name, stepping,
+                                                  single, warmup)
+        paths[title] = launches
+        reports[name] = dict(timing, main_wall_s=rep["main_wall_s"],
+                             capture_s=rep["capture_s"],
+                             main_steps=rep["main_steps"],
+                             main_krylov_iters=rep["main_krylov_iters"])
+        torch.cuda.empty_cache()
+    with phase(f"I3: the modes at {STEPPING_CHECK_MESH[0]}x"
+               f"{STEPPING_CHECK_MESH[1]} vs the JAX records"):
+        paths["I3 cylinder 160x80 modes"] = stepping_vs_record(dev)
+    with phase("I4: cli --pipeline vs the JAX record"):
+        paths["I4 cli 160x80 --pipeline"] = stepping_cli(dev)
+    print("I summary", json.dumps(dict(modes=reports, card=CARD)),
+          flush=True)
+    return dict(givens=grows, graph_if=ifrec,
+                launches=paths["I cylinder 640x320 banded, pipeline"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3372,6 +3860,7 @@ def main() -> int:
     options_phases(dev, paths, gather_rep)
     dist_phases(dev, paths, cli_check)
     precision_phases(dev, paths, single_rep)
+    stepping = stepping_phases(dev, paths, single_rep)
 
     def main_row(rows, **want):
         return next(r for r in rows if r["dtype"] == "float32"
@@ -3381,6 +3870,8 @@ def main() -> int:
     mv = main_row(brows, op="matvec")
     pc = main_row(frows)
     rs = main_row(rrows, n=ROWSET_SIZES[0])
+    gv = next(r for r in stepping["givens"]
+              if r["dtype"] == "float32" and r["j"] == GIVENS_J[1])
 
     def v1_rows(rows, **want):
         """The heat equation's 1x1-block rows, f32 and f64."""
@@ -3421,17 +3912,40 @@ def main() -> int:
             library_ms=None, **{k: rs[k] for k in keys},
             shape=f"f32 row {rs['j']} of a (96, {rs['n']}) basis",
             library="no single PyTorch call: w / clamp_min(hn) is two"),
+        "givens_column": dict(
+            max_abs_err=max(r["max_abs_err"] for r in stepping["givens"]),
+            library_ms=None,
+            **{k: gv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "device_ms")},
+            rows=stepping["givens"],
+            shape=f"f32, iteration j={gv['j']} of FGMRES({gv['m']})",
+            note="latency-bound: one block, a dependent chain of j "
+                 "rotations; the bound is its bytes at the memory rate",
+            library="none: no PyTorch call applies Givens rotations"),
+        "graph_if": dict(
+            library_ms=None,
+            **{k: stepping["graph_if"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "live_node_ms", "plain")},
+            shape=f"an IF node with its predicate false (a dead Krylov "
+                  f"iteration), per node of {IF_NODES}",
+            library="none in the card's torch (2.13's CUDAGraph."
+                    "begin_capture_to_if_node is not there)"),
     }
-    # each kernel's launches from the 640x320 path of this slice that runs
+    # each kernel's launches from the 640x320 path of its slice that runs
     # it: the banded kernels from the banded solve, row_set from the gather
-    # solve
+    # solve, the Givens kernel and the IF nodes from the pipelined solve
+    # (counted on the card: they run inside CUDA graphs)
     launches = dict(paths["cylinder 640x320 banded"],
-                    row_set=paths["cylinder 640x320 gather bsgs"]["row_set"])
+                    row_set=paths["cylinder 640x320 gather bsgs"]["row_set"],
+                    givens_column=stepping["launches"]["givens_column"],
+                    graph_if=stepping["launches"]["graph_if"])
     print("phases", json.dumps(PHASES), flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=launches[name], **measured[name],
-             launches_by_path={p: n[name] for p, n in paths.items()})
+             launches_by_path={p: n.get(name, 0)
+                               for p, n in paths.items()})
         for name, (src, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

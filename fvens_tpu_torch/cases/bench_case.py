@@ -49,14 +49,16 @@ def bench_config() -> FlowCaseConfig:
 
 def bench_solver(device, mesh=BENCH_MESH, mixed: bool = True,
                  pallas: bool = True, order2: bool = True, banded: bool = True,
-                 pc: str = "bsgs", pc_sweeps: int = 6):
+                 pc: str = "bsgs", pc_sweeps: int = 6, pipeline: bool = False):
     """(SteadyBackwardEuler, CompiledMesh) of the bench solve on `device`.
 
     `mesh` is the (ni, nj) of naca0012_omesh; `mixed=False` runs the
     Jacobian and Krylov solve in f64 too; `pallas` selects the CUDA banded
     kernel on a CUDA device (False: the plain PyTorch twins);
     `order2=False` is the first-order (starter) discretization; `banded`,
-    `pc` and `pc_sweeps` the linear solver's path and preconditioner."""
+    `pc` and `pc_sweeps` the linear solver's path and preconditioner;
+    `pipeline` the pipelined stepping bench.py runs by default
+    (bench.py:run_solve(pipeline=), solver/device_stepping.py)."""
     cfg = bench_config()
     cm = compile_mesh(naca0012_omesh(*mesh), cfg.bcs, dtype=torch.float64,
                       device=device)
@@ -64,7 +66,8 @@ def bench_solver(device, mesh=BENCH_MESH, mixed: bool = True,
                              pc_sweeps=pc_sweeps, mixed_precision=mixed,
                              banded=banded, pallas=pallas)
     pt = PseudoTimeConfig(cfl_init=500.0, cfl_fin=5000.0, tol=1e-16,
-                          tol_abs=TOL_ABS, maxiter=MAX_STEPS)
+                          tol_abs=TOL_ABS, maxiter=MAX_STEPS,
+                          pipeline=pipeline)
     solver = SteadyBackwardEuler(build_space(cfg, order2=order2), pt, lin,
                                  NonlinearUpdateConfig("full"))
     return solver, cm

@@ -72,12 +72,15 @@ OPTIONS = {"ilu0": GATHER_ILU0, "amg": GATHER_AMG, "bline": GATHER_BLINE,
 
 
 def case_config(pallas: bool = True, banded: bool = True, pc: str = "bsgs",
-                pc_sweeps: int = 6, **lin) -> FlowCaseConfig:
+                pc_sweeps: int = 6, stepping=None, **lin) -> FlowCaseConfig:
     """The case's configuration; `pallas` selects the CUDA banded kernels on
     a CUDA device (False: their plain PyTorch twins; the row_set kernel of
     blocked GMRES has no such switch), `banded`, `pc` and `pc_sweeps` the
     linear solver's path and preconditioner, `lin` any other
-    LinearSolverConfig field (the presets above)."""
+    LinearSolverConfig field (the presets above), `stepping` PseudoTimeConfig
+    fields (pipeline, device_steps, bake_mesh) set on the starter and the
+    main solve alike, as scripts/bench_bigmesh.py sets --pipeline."""
+    st = dict(stepping or {})
     bcs = [BCSpec(marker=2, type="slipwall"),
            BCSpec(marker=4, type="farfield")]
     return FlowCaseConfig(
@@ -86,9 +89,9 @@ def case_config(pallas: bool = True, banded: bool = True, pc: str = "bsgs",
                                 reconstruction="LINEAR", order2=True),
         bcs=bcs,
         main=PseudoTimeConfig(cfl_init=500.0, cfl_fin=5000.0, tol=1e-16,
-                              tol_abs=TOL_ABS, maxiter=600),
+                              tol_abs=TOL_ABS, maxiter=600, **st),
         init=PseudoTimeConfig(cfl_init=50.0, cfl_fin=1000.0, tol=1e-1,
-                              maxiter=200),
+                              maxiter=200, **st),
         linear=LinearSolverConfig(**dict(
             dict(restart=90, maxiter=90, rtol=1e-2, pc=pc,
                  pc_sweeps=pc_sweeps, mixed_precision=True, banded=banded,
@@ -96,10 +99,12 @@ def case_config(pallas: bool = True, banded: bool = True, pc: str = "bsgs",
         nl_update=NonlinearUpdateConfig("full"))
 
 
-def build_case(device, ni: int, nj: int, pallas: bool = True, **lin):
+def build_case(device, ni: int, nj: int, pallas: bool = True,
+               stepping=None, **lin):
     """(SteadyFlowCase, CompiledMesh, free-stream u0) on `device`, with the
-    mesh cylinder_omesh(ni, nj) compiled at f64; `lin` as case_config's."""
-    cfg = case_config(pallas, **lin)
+    mesh cylinder_omesh(ni, nj) compiled at f64; `stepping` and `lin` as
+    case_config's."""
+    cfg = case_config(pallas, stepping=stepping, **lin)
     md = cylinder_omesh(ni, nj, stretch=1.15 ** (20.0 / nj))
     mesh = compile_mesh(md, cfg.bcs, dtype=torch.float64, device=device)
     case = SteadyFlowCase(cfg)
@@ -112,8 +117,10 @@ def _sync(device):
 
 
 def run_solve(device, mesh=BIGMESH, warmup: bool = True,
-              two_phase: float = 0.0, **lin) -> tuple:
-    """Build the case on `device` (`lin` as case_config's) and solve it from free stream, starter then main; with
+              two_phase: float = 0.0, pipeline: bool = False,
+              stepping=None, keep=None, **lin) -> tuple:
+    """Build the case on `device` (`lin` as case_config's) and solve it
+    from free stream, starter then main; with
     `warmup` twice, the first solve a warm-up that is not timed, as
     scripts/bench_bigmesh.py does (its wall time excludes first-use costs).
     Returns (u, report) with report a dict of the timed solve: the linear
@@ -130,13 +137,27 @@ def run_solve(device, mesh=BIGMESH, warmup: bool = True,
     last CFL; the main steps and Krylov iterations are phase A's main
     solve's plus phase B's, the starter's are phase A's, and the report
     adds `two_phase`, `phase_a` and `phase_b` (steps, Krylov iterations,
-    final absolute residual, wall; phase B's starting CFL)."""
-    case, cm, u0 = build_case(device, *mesh, **lin)
+    final absolute residual, wall; phase B's starting CFL).
+
+    `pipeline` runs the starter and the main solve pipelined, as
+    scripts/bench_bigmesh.py --pipeline does; `stepping` sets any of the
+    PseudoTimeConfig fields pipeline, device_steps and bake_mesh on both
+    (solver/device_stepping.py). The report names all three, and adds the
+    Krylov iterations of every solve's device-form steps
+    (`device_krylov_iters_all`; `discarded_krylov_iters_all` those of the
+    pipelined steps queued and discarded) and the timed solve's seconds of
+    graph capture (`capture_s`, starter and main; `main_capture_s`).
+    `keep`, a dict, receives the case and its mesh."""
+    stepping = dict(stepping or {}, **({"pipeline": True} if pipeline
+                                       else {}))
+    case, cm, u0 = build_case(device, *mesh, stepping=stepping, **lin)
+    if keep is not None:
+        keep.update(case=case, mesh=cm)
     if two_phase:
         from .precision import case_two_phase
         scheduled = case_two_phase(case, cm, two_phase)
         u32 = u0.to(torch.float32)
-    iters_all = 0
+    iters_all = device_iters_all = discarded_all = 0
     for _ in range(2 if warmup else 1):
         _sync(device)
         t0 = time.perf_counter()
@@ -149,6 +170,8 @@ def run_solve(device, mesh=BIGMESH, warmup: bool = True,
         _sync(device)
         wall = time.perf_counter() - t0
         iters_all += info.total_lin_iters + st.total_lin_iters
+        device_iters_all += info.device_lin_iters + st.device_lin_iters
+        discarded_all += info.discarded_lin_iters + st.discarded_lin_iters
     n = 4 * cm.NC
     cl = case.cfg.linear
     return u, dict(
@@ -156,6 +179,9 @@ def run_solve(device, mesh=BIGMESH, warmup: bool = True,
         banded=cl.banded, pc=cl.pc, pc_sweeps=cl.pc_sweeps,
         matrix_free=cl.matrix_free, matrix_free_fd=cl.matrix_free_fd,
         warm_start=cl.warm_start, deflation_k=cl.deflation_k,
+        pipeline=case.cfg.main.pipeline,
+        device_steps=case.cfg.main.device_steps,
+        bake_mesh=case.cfg.main.bake_mesh,
         blocked=n >= linear._BLOCKED_N_THRESHOLD, wall_s=wall,
         main_wall_s=info.walltime,
         starter_steps=st.steps, starter_krylov_iters=st.total_lin_iters,
@@ -164,5 +190,8 @@ def run_solve(device, mesh=BIGMESH, warmup: bool = True,
         cell_updates_per_s=cm.n_cells * info.steps / wall,
         abs_res=info.finalres, rel_res=info.finalres / info.initres,
         entropy=entropy_error(build_space(case.cfg), cm, u),
-        krylov_iters_all=iters_all,
+        krylov_iters_all=iters_all, device_krylov_iters_all=device_iters_all,
+        discarded_krylov_iters_all=discarded_all,
+        capture_s=info.capture_s + st.capture_s,
+        main_capture_s=info.capture_s,
         **(info.report() if two_phase else {}))

@@ -26,9 +26,11 @@ one device whatever --devices says.
 it, and has no effect: the functionals of a distributed run are evaluated
 once, on the gathered state, and rank 0 says so once.
 
-Refused with NotImplementedError: `--pipeline` (pipelined stepping is
-ported only once an H100 measurement shows the per-step host sync costs
-time).
+`--pipeline` sets PseudoTimeConfig.pipeline on the starter and the main
+solve, as the JAX CLI does: each implicit solve then queues step k+1 before
+it reads step k's residual (solver/device_stepping.py), on the CPU too. A
+distributed solve refuses it (its steps read their reduced scalars on the
+host).
 """
 
 from __future__ import annotations
@@ -81,7 +83,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "reference's mpirun -n N; 0 = one device): NCCL "
                          "with one card per rank, or gloo with --device cpu")
     ap.add_argument("--pipeline", action="store_true",
-                    help="software-pipelined host stepping (not ported)")
+                    help="software-pipelined host stepping: queue step k+1 "
+                         "before reading step k's residual (the device-"
+                         "controlled step; trajectory-identical up to the "
+                         "Krylov update's rounding)")
     ap.add_argument("--log_every", type=int, default=10)
     return ap.parse_args(argv)
 
@@ -97,11 +102,6 @@ FUNCTIONALS_EVERY_NOTICE = (
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.pipeline:
-        raise NotImplementedError(
-            "not ported: pipelined host stepping (--pipeline); it is ported "
-            "only once an H100 measurement shows the per-step host sync "
-            "costs time (ROADMAP)")
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -169,6 +169,10 @@ def _run(args, comm=None) -> int:
                                   functionals_every=args.functionals_every)
         if comm is not None:
             say(FUNCTIONALS_EVERY_NOTICE)
+    if args.pipeline:
+        cfg = dataclasses.replace(
+            cfg, main=dataclasses.replace(cfg.main, pipeline=True),
+            init=dataclasses.replace(cfg.init, pipeline=True))
     dtype = torch.float32 if args.f32 else torch.float64
 
     if not os.path.exists(cfg.mesh_file):

@@ -72,6 +72,18 @@ class TwoPhaseInfo:
         return self.a.total_lin_iters + self.b.total_lin_iters
 
     @property
+    def device_lin_iters(self) -> int:
+        return self.a.device_lin_iters + self.b.device_lin_iters
+
+    @property
+    def discarded_lin_iters(self) -> int:
+        return self.a.discarded_lin_iters + self.b.discarded_lin_iters
+
+    @property
+    def capture_s(self) -> float:
+        return self.a.capture_s + self.b.capture_s
+
+    @property
     def converged(self) -> bool:
         return self.b.converged
 

@@ -230,6 +230,11 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
             raise NotImplementedError(
                 "device-side chunked stepping (device_steps > 1) has no "
                 "distributed form")
+        if self.cfg.pipeline or self.cfg.bake_mesh:
+            raise NotImplementedError(
+                "pipelined stepping and baked (captured) steps have no "
+                "distributed form yet: a rank's step reads its allreduced "
+                "scalars on the host (ROADMAP queue 1, item 14)")
 
     def _banded(self, mesh):
         """This rank's part of the partitioned band analysis

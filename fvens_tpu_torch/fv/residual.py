@@ -21,6 +21,7 @@ flux divergence, i.e. `rhs` in  Vol du/dt = rhs  (flow_spatial.cpp:551-561).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -33,6 +34,11 @@ from .reconstruction import (cell_limited_gradients, extrapolate_faces,
                              get_reconstruction)
 from .viscous import (modified_average_gradient, prim2_states_and_gradients,
                       viscous_face_flux)
+
+
+@functools.lru_cache(maxsize=None)
+def _freestream(phy: GasPhysics, aoa: float, dtype, device):
+    return phy.freestream_state(aoa, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +58,11 @@ class FlowFV:
 
     # -- pieces ---------------------------------------------------------------
     def uinf(self, dtype: torch.dtype, device: torch.device | str):
-        """(4,) free-stream conserved state."""
-        return self.phy.freestream_state(self.pcfg.aoa, dtype=dtype,
-                                         device=device)
+        """(4,) free-stream conserved state, made once per dtype and device
+        and shared, so read-only: a residual captured into a CUDA graph
+        (solver/device_stepping.py) cannot copy it from the host."""
+        return _freestream(self.phy, self.pcfg.aoa, dtype,
+                           torch.device(device))
 
     def ghost_states(self, mesh, u, uinf):
         """Conserved ghost cell-centre states at physical boundary faces."""

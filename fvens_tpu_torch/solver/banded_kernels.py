@@ -45,6 +45,7 @@ import os
 import torch
 
 from .._build import CSRC_DIR, build_cuda_library
+from . import device_counts
 from .banded import (_block_mv, _norm_offsets, _shift, bsgs_sweeps,
                      rest_apply)
 
@@ -221,6 +222,7 @@ class BandedApply:
             _raise_launch("banded_apply", _LIBS["banded_apply"][0],
                           "fvens_cuda_error_string", err)
         banded_apply.launches += 1
+        device_counts.count("banded_apply", self.device)
         return out
 
 
@@ -512,6 +514,7 @@ class BsgsApply:
             _raise_launch("banded_bsgs", _LIBS["banded_bsgs"][0],
                           "fvens_bsgs_error_string", err)
         bsgs_apply.launches += 1
+        device_counts.count("bsgs_apply", self.device)
         return out
 
 

@@ -16,6 +16,13 @@ make_preconditioner (none, bjacobi, bsgs, bcsgs, the fixed-point block
 ILU0 of solver/ilu.py, the line smoother over solver/lines.py and the
 aggregation multigrid of solver/multigrid.py). gmres_dr is the JAX
 package's GCRO-DR recycling GMRES, on the classic path at every size.
+
+gmres_device is gmres with its control on the device, the counterpart of
+the JAX package's while-loop FGMRES: the same two paths, the Givens work by
+the CUDA kernel of solver/givens_kernels.py, and each iteration, second
+pass and restart guarded by a device predicate (computed and selected
+eagerly, or an IF node of a captured CUDA graph). The device-resident
+stepping options run it (solver/device_stepping.py).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .givens_kernels import givens_column
 from .rowset_kernels import row_set
 
 
@@ -532,6 +540,198 @@ def _cycle_blocked(mv, pcf, bf, x, m, tol, hdt):
     if j > 0:
         x = x + pcf(_rows_combine(V, _least_squares(H, g, j, dev), j))
     return x, j, res
+
+
+# ---------------------------------------------------------------------------
+# The device-controlled FGMRES: no host read inside a solve
+# ---------------------------------------------------------------------------
+
+class EagerControl:
+    """gmres_device's control flow run eagerly: every iteration, every
+    restart cycle and the blocked path's second pass are computed and their
+    writes selected by their condition (torch.where), so nothing is read
+    back; a dead iteration costs what a live one does. Inside a CUDA-graph
+    capture, solver/graph_if.py:GraphControl takes its place."""
+    masked = True
+
+    @staticmethod
+    def run_if(pred, body):
+        body(pred)
+
+
+EAGER = EagerControl()
+
+
+def _sel(pred, new, old):
+    """new where `pred` holds (None: always), else old."""
+    return new if pred is None else torch.where(pred, new, old)
+
+
+class KrylovWorkspace:
+    """The device state of gmres_device: the basis (and, on the classic
+    path, the preconditioned directions), the Hessenberg matrix, the
+    rotations, g, the solution and the scalars the Givens kernel updates.
+    Allocated once per (n, restart, dtype, device, path) and rewritten by
+    every cycle of every solve, so that a captured graph writes the same
+    memory at each replay and the K steps of a captured chunk share it."""
+
+    def __init__(self, n: int, m: int, dtype, device, blocked: bool):
+        z = functools.partial(torch.zeros, dtype=dtype, device=device)
+        self.key = (n, m, dtype, torch.device(device), blocked)
+        rows = -(-(m + 1) // _ROW_BLOCK) * _ROW_BLOCK if blocked else m + 1
+        self.V = z((rows, n))
+        self.Z = None if blocked else z((m, n))
+        self.row = z((1, n)) if blocked else None   # masked row_set target
+        self.H = z((m + 1, m))
+        self.cs, self.sn, self.g = z(m), z(m), z(m + 1)
+        self.x, self.res = z(n), z(())
+        self.live = torch.zeros((), dtype=torch.bool, device=device)
+        self.iters = torch.zeros((), dtype=torch.int32, device=device)
+
+
+def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
+                 restart: int = 30, maxiter: int = 30,
+                 blocked: bool | None = None, ws: KrylovWorkspace = None,
+                 ctl=EAGER):
+    """gmres with its control on the device: the counterpart of the JAX
+    package's gmres (lax.while_loop over the iterations, lax.cond over the
+    blocked path's second pass and the restarts), on one device.
+
+    The same two paths and arithmetic as gmres, iteration for iteration:
+    the same products over the filled basis rows (the host loop index j
+    bounds them), the Givens rotations by the givens_column kernel (its
+    twin on the CPU), which also keeps the residual estimate, the
+    convergence flag `live` and the iteration count on the device. Where
+    gmres reads back, this keeps device tensors:
+
+      - tol = rtol * ||b|| (rtol a 0-dim tensor, or a float);
+      - each of the `restart` iterations of a cycle runs under `live`, the
+        blocked path's second pass under wn1 < 0.7 wn0, a cycle after the
+        first under res > tol, through `ctl`: EAGER computes every branch
+        and selects its writes, a graph_if.GraphControl captures each into
+        an IF node of a CUDA graph;
+      - the least-squares solve runs over all `restart` columns with the
+        unused ones made identity and their g zero, so y is 0 past the
+        cycle's iterations and x += Z^T y (blocked: pc(V^T y)) reads the
+        zero rows the cycle did not fill. Only this update's rounding can
+        differ from gmres's (a product over restart rather than j rows).
+
+    `ws`: the KrylovWorkspace to write (a new one when None). Returns (x,
+    iterations, relres) as device tensors: x like b, iterations int32."""
+    if b.is_cuda:
+        # the f32 Arnoldi products must run in full f32, never TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    shape, n, dtype, dev = b.shape, b.numel(), b.dtype, b.device
+    if blocked is None:
+        blocked = n >= _BLOCKED_N_THRESHOLD
+    m = restart
+    if ws is None:
+        ws = KrylovWorkspace(n, m, dtype, dev, blocked)
+    if ws.key != (n, m, dtype, torch.device(dev), blocked):
+        raise ValueError(f"workspace {ws.key} does not fit a solve of "
+                         f"{(n, m, dtype, dev, blocked)}")
+    if not torch.is_tensor(rtol):
+        rtol = torch.full((), rtol, dtype=torch.float64, device=dev)
+    bf = b.reshape(n)
+    mv = lambda v: matvec(v.reshape(shape)).reshape(n)
+    pcf = lambda v: pc(v.reshape(shape)).reshape(n)
+
+    bnorm = _norm2(bf)
+    tol = rtol.to(dtype) * bnorm
+    ws.x.copy_(x0.reshape(n))
+    ws.iters.zero_()
+    ws.res.fill_(float("inf"))
+    cycle = functools.partial(_device_cycle, ws, mv, pcf, bf, m, tol, ctl,
+                              blocked)
+    for c in range(max(1, -(-maxiter // restart))):
+        if c == 0:
+            cycle(None)
+        else:
+            # converged restarts skip the whole cycle
+            ctl.run_if(ws.res > tol, cycle)
+    return (ws.x.clone().reshape(shape), ws.iters.clone(),
+            ws.res / torch.clamp_min(bnorm, 1e-300))
+
+
+def _device_cycle(ws, mv, pcf, bf, m, tol, ctl, blocked, pred):
+    """One restart cycle of gmres_device, its writes selected by `pred`
+    (None inside a conditional node: it runs)."""
+    x = ws.x
+    r = bf - mv(x)
+    beta = _norm2(r)
+    it0 = ws.iters.clone()
+    for t in (ws.V, ws.Z, ws.H, ws.cs, ws.sn, ws.g):
+        if t is not None:
+            t.zero_()
+    ws.V[0] = r / torch.clamp_min(beta, 1e-300)
+    ws.g[0] = beta
+    ws.res.copy_(_sel(pred, beta, ws.res))
+    live = beta > tol
+    ws.live.copy_(live if pred is None else live & pred)
+    step = _blocked_iteration if blocked else _classic_iteration
+    for j in range(m):
+        ctl.run_if(ws.live, functools.partial(step, ws, mv, pcf, j, tol, ctl))
+
+    jc = ws.iters - it0
+    used = torch.arange(m, device=x.device) < jc
+    R = ws.H[:m] * (used[:, None] & used[None, :])
+    R = R + torch.diag((~used).to(R.dtype))
+    rhs = torch.where(used, ws.g[:m], 0.0)
+    y = torch.linalg.solve_triangular(R, rhs[:, None], upper=True)[:, 0]
+    if blocked:
+        upd = x + pcf(ws.V[:m].T @ y)
+    else:
+        upd = x + ws.Z.T @ y
+    x.copy_(torch.where(jc > 0, upd, x))
+
+
+def _classic_iteration(ws, mv, pcf, j, tol, ctl, pred):
+    """Iteration j of the classic path: gmres's CGS2 over the j+1 filled
+    rows, then the Givens kernel."""
+    V = ws.V
+    z = pcf(V[j])
+    w = mv(z)
+    Vj = V[:j + 1]
+    h = Vj @ w
+    w = w - Vj.T @ h
+    h2 = Vj @ w
+    w = w - Vj.T @ h2
+    h = h + h2
+    hn = _norm2(w)
+    V[j + 1] = _sel(pred, w / torch.clamp_min(hn, 1e-300), V[j + 1])
+    ws.Z[j] = _sel(pred, z, ws.Z[j])
+    givens_column(h, hn, j, ws.H, ws.cs, ws.sn, ws.g, ws.res, tol, ws.live,
+                  ws.iters)
+
+
+def _blocked_iteration(ws, mv, pcf, j, tol, ctl, pred):
+    """Iteration j of the blocked path: one blocked-MGS pass, the second
+    under wn1 < 0.7 wn0 (a nested conditional), the row_set append and the
+    Givens kernel."""
+    V = ws.V
+    w = mv(pcf(V[j]))
+    wn0 = _norm2(w)
+    h, w = _mgs_pass(V, w, j + 1)
+    hn = _norm2(w)
+    again = hn < 0.7 * wn0          # at the Krylov dtype, as gmres decides
+    if ctl.masked:
+        h2, w2 = _mgs_pass(V, w, j + 1)
+        h = torch.where(again, h + h2, h)
+        w = torch.where(again, w2, w)
+        hn = torch.where(again, _norm2(w2), hn)
+        row_set(ws.row, 0, w, hn)
+        V[j + 1] = _sel(pred, ws.row[0], V[j + 1])
+    else:
+        def second_pass(_):
+            h2, w2 = _mgs_pass(V, w, j + 1)
+            h.add_(h2)
+            w.copy_(w2)
+            hn.copy_(_norm2(w2))
+        ctl.run_if(again, second_pass)
+        row_set(V, j + 1, w, hn)
+    givens_column(h[:j + 1], hn, j, ws.H, ws.cs, ws.sn, ws.g, ws.res, tol,
+                  ws.live, ws.iters)
 
 
 def _cholqr(A, k: int, ar):

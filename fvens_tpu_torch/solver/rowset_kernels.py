@@ -33,6 +33,7 @@ import os
 import torch
 
 from .._build import CSRC_DIR, build_cuda_library
+from . import device_counts
 
 TINY = 1e-300              # the clamp of the norm; rounds to 0 at f32
 
@@ -108,6 +109,7 @@ def row_set(V, j: int, w, hn):
         raise RuntimeError(f"row_set kernel launch failed: {msg} "
                            f"(cudaError {err})")
     row_set.launches += 1
+    device_counts.count("row_set", V.device)
     return V
 
 

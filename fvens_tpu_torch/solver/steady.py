@@ -16,10 +16,10 @@ SteadyBackwardEulerSolver (FVENS src/ode/aodesolver.cpp:136-638):
     first-order Jacobian J1 (defect-correction quasi-Newton)
   - NaN residual -> NumericalError; non-convergence -> ToleranceError.
 
-Each step runs eagerly on the tensors' device; the scalar control flow (CFL
-ramp, Krylov forcing, recovery) stays on the host, fed by one residual
-fetch per step. The linear solve takes one of the JAX package's two paths
-(its steady.py:350-424):
+By default each step runs eagerly on the tensors' device; the scalar
+control flow (CFL ramp, Krylov forcing, recovery) stays on the host, fed by
+one residual fetch per step. The linear solve takes one of the JAX
+package's two paths (its steady.py:350-424):
 
   - banded, where LinearSolverConfig.banded is set, the mesh is
     band-coverable and pc is bjacobi or bsgs: with LinearSolverConfig.pallas
@@ -59,8 +59,17 @@ hook, a part's banded operators with its rest list (on the card K1 for the
 bands and, for bsgs, K1's seven-launch sequence, the rest added after each
 launch), and the checkpoint's state from all ranks.
 
-Not ported, and refused with NotImplementedError: on-device chunked
-stepping (device_steps), pipelined stepping and baked-mesh programs.
+The JAX package's device-resident options run on the device-form step
+(_device_step: the device-controlled gmres_device and the NaN poisoning on
+the device, nothing read back inside it; solver/device_stepping.py), on
+the JAX package's conditions (its steady.py:758-830): `device_steps` > 1
+(exp ramp, no deflation) runs chunks of K steps with the controller on
+the device; `pipeline` (classic path, exp ramp, not with bake_mesh) queues
+step k+1 before it reads step k; `bake_mesh` (classic path) runs the host
+loop's steps through the captured step program. The first step, and five
+after each recovery, run singly; elsewhere the host loop runs, and the
+default host loop and its host-controlled gmres are unchanged. On the card
+the programs are CUDA graphs with IF nodes; off it they run eagerly.
 """
 
 from __future__ import annotations
@@ -85,7 +94,11 @@ from .banded_kernels import (make_banded_bsgs_kernel,
                              make_banded_bsgs_sequence,
                              make_banded_matvec_kernel)
 from .ilu import ilu_structure
-from .linear import (BlockJacobian, block_jacobi_inverse, gmres, gmres_dr,
+from . import linear
+from .device_stepping import (ChunkProgram, StepProgram, Readback,
+                              no_host_sync, pipeline_burst)
+from .linear import (EAGER, BlockJacobian, KrylovWorkspace,
+                     block_jacobi_inverse, gmres, gmres_device, gmres_dr,
                      make_bsr_matvec, make_preconditioner)
 from .lines import lines_from_mesh
 from .multigrid import build_hierarchy
@@ -117,6 +130,13 @@ class SolveInfo:
     history: list = dataclasses.field(default_factory=list)
     # (seconds, lin_iters) per step call, retried steps included
     step_times: list = dataclasses.field(default_factory=list)
+    # Krylov iterations of the device-form steps (bursts, chunks, baked
+    # steps: solver/device_stepping.py), and the seconds spent capturing
+    # their CUDA graphs during this solve
+    device_lin_iters: int = 0
+    capture_s: float = 0.0
+    # Krylov iterations of pipelined steps queued and then discarded
+    discarded_lin_iters: int = 0
 
 
 @dataclasses.dataclass
@@ -304,17 +324,6 @@ class SteadyBackwardEuler:
     functional_fn: Optional[object] = None
     functional_every: int = 0
     log_label = "BE"      # class attr (not a field): logger prefix
-
-    def _check_supported(self):
-        cfg = self.cfg
-        missing = [name for name, on in (
-            ("PseudoTimeConfig.device_steps > 1", cfg.device_steps > 1),
-            ("PseudoTimeConfig.pipeline", cfg.pipeline),
-            ("PseudoTimeConfig.bake_mesh", cfg.bake_mesh),
-        ) if on]
-        if missing:
-            raise NotImplementedError(
-                "not ported: " + ", ".join(missing))
 
     def _cached(self, name, mesh, build):
         """A host-built per-mesh structure, cached on the solver."""
@@ -538,6 +547,49 @@ class SteadyBackwardEuler:
             return unew, res, iters, du, U
         return unew, res, iters
 
+    def _device_step(self, mesh, u, cfl, rtol, omega_cap, lmesh=None,
+                     bl=None, du0=None, ctl=EAGER, ws=None):
+        """The device form of _step, the counterpart of the JAX package's
+        step program: the same operators, the Krylov solve by gmres_device
+        (its control on the device, through `ctl`: EAGER, or a CUDA-graph
+        capture's GraphControl), and the NaN poisoning on the device. cfl,
+        rtol and omega_cap are 0-dim tensors on u's device; `du0` (warm
+        start) the previous direction. Reads nothing back: returns (unew,
+        res, iters, du) as device tensors, res NaN where any residual,
+        state or update component or the Krylov relres is non-finite."""
+        rhs, lrhs, ops = self.step_operators(mesh, u, cfl, lmesh, bl)
+        matvec, pc = self._linear_operators(ops)
+        x0 = torch.zeros_like(lrhs)
+        if du0 is not None:
+            x0 = du0.to(lrhs.dtype)
+            x0 = torch.where(torch.isfinite(x0).all(), x0,
+                             torch.zeros_like(x0))
+        du, iters, relres = gmres_device(
+            matvec, lrhs, x0, pc, rtol, restart=self.lin.restart,
+            maxiter=self.lin.maxiter, ws=ws or self._workspace(u), ctl=ctl)
+        du = du.to(u.dtype)
+        unew = u + self._update_factor(u, du, omega_cap)[:, None] * du
+        ok = (torch.isfinite(rhs).all() & torch.isfinite(unew).all()
+              & torch.isfinite(du).all() & torch.isfinite(relres))
+        res = torch.where(ok, residual_norm(mesh, rhs),
+                          torch.full((), float("nan"), dtype=rhs.dtype,
+                                     device=rhs.device))
+        return unew, res, iters, du
+
+    def _workspace(self, u):
+        """The KrylovWorkspace of the device-form steps on states like u
+        (n, the Krylov precision, the path gmres takes at that n), one per
+        solver and key, shared by its programs."""
+        kdt = (torch.float32 if self.lin.mixed_precision
+               and u.dtype == torch.float64 else u.dtype)
+        n = u.numel()
+        key = (n, self.lin.restart, kdt, u.device,
+               n >= linear._BLOCKED_N_THRESHOLD)
+        cache = self.__dict__.setdefault("_krylov_workspaces", {})
+        if key not in cache:
+            cache[key] = KrylovWorkspace(*key)
+        return cache[key]
+
     def _update_factor(self, u, du, omega_cap):
         """The per-cell factor omega of the update u + omega du: the
         nonlinear update scheme's, capped at omega_cap, then scaled by a
@@ -566,6 +618,57 @@ class SteadyBackwardEuler:
             omega = omega * scale
         return omega
 
+    def _save(self, u, step, cfl, res, initres, rtol, rtol_floor,
+              raise_relres, resold, cfl_cap):
+        """Write the checkpoint (where the solver has a path and this
+        process writes one): the state and the controller."""
+        if not (self.checkpoint_path and self.checkpoint_every):
+            return
+        state = self._checkpoint_state(u)
+        if state is not None:
+            save_checkpoint(self.checkpoint_path, state, step=step, cfl=cfl,
+                            res=res, initres=initres,
+                            extra={"rtol": rtol, "rtol_floor": rtol_floor,
+                                   "raise_relres": raise_relres,
+                                   "resold": resold,
+                                   "cfl_cap": min(cfl_cap, 1e300)})
+
+    def _program(self, kind: str, mesh, lmesh, bl, u):
+        """The device_stepping program `kind` ("step": StepProgram,
+        "chunk": ChunkProgram of device_steps steps) for mesh and states
+        like u, made once and kept per mesh, as the JAX package keeps its
+        baked programs per mesh; keyed on the configurations it bakes in
+        (self.cfg may be swapped between solves)."""
+        key = (kind, u.dtype, tuple(u.shape), u.device, self.lin, self.nl)
+        if kind == "chunk":
+            key += (self.cfg,)
+        progs = self.__dict__.get("_programs")
+        if progs is None or progs[0] is not mesh:
+            progs = self._programs = (mesh, {})
+        if key not in progs[1]:
+            progs[1][key] = (
+                StepProgram(self, mesh, lmesh, bl, u) if kind == "step"
+                else ChunkProgram(self, int(self.cfg.device_steps), mesh,
+                                  lmesh, bl, u))
+        return progs[1][key]
+
+    def _capture_seconds(self) -> float:
+        """Seconds this solver's programs have spent capturing graphs."""
+        progs = self.__dict__.get("_programs")
+        return sum(p.program.capture_s for p in progs[1].values()) \
+            if progs else 0.0
+
+    def _baked_step(self, mesh, lmesh, bl, u, cfl, rtol, omega_cap):
+        """One step of the host loop through the StepProgram (bake_mesh):
+        (unew, res, iters) with res a host float and iters an int, read
+        back after the step."""
+        program = self._program("step", mesh, lmesh, bl, u)
+        with no_host_sync(u.device):
+            unew, res, iters = program(u, cfl, rtol, omega_cap)
+            rb = Readback([res, iters])
+        res, iters = rb.get()
+        return unew, res, int(iters)
+
     def _checkpoint_state(self, u):
         """The array a checkpoint stores for state u (None: this process
         writes no checkpoint)."""
@@ -586,7 +689,6 @@ class SteadyBackwardEuler:
         returns without the convergence verdict (for step-by-step
         comparisons); otherwise a solve that does not converge raises
         ToleranceError."""
-        self._check_supported()
         bl = self._banded(mesh)
         mixed = self.lin.mixed_precision and u0.dtype == torch.float64
         lmesh = mesh.to(torch.float32) if mixed else mesh
@@ -594,6 +696,7 @@ class SteadyBackwardEuler:
         u = u0
         info = SolveInfo()
         t0 = time.perf_counter()
+        capture0 = self._capture_seconds()
         res = resold = initres = 1.0
         cfl = self.cfg.cfl_init
         step = 0
@@ -639,7 +742,111 @@ class SteadyBackwardEuler:
         defl = self.lin.deflation_k > 0
         du_prev = torch.zeros_like(u) if warm else None
         U_defl = None           # recycled Krylov space (lin.deflation_k)
+        cfg = self.cfg
+        # the device-resident modes, on the JAX package's conditions: K
+        # steps a chunk with the exp ramp and no deflation; pipelined
+        # bursts on the classic exp-ramp path, not with bake_mesh; the baked
+        # (captured) step on the classic path. Elsewhere the host loop.
+        K = max(1, int(cfg.device_steps))
+        chunk_on = K > 1 and cfg.cfl_ramp == "exp" and not defl
+        pipe_on = (cfg.pipeline and not chunk_on and not warm and not defl
+                   and cfg.cfl_ramp == "exp" and not cfg.bake_mesh)
+        bake_on = cfg.bake_mesh and not warm and not defl
+        single_left = 1         # the first step runs singly (sets initres);
+        #                         recoveries also force a few single steps
+        du_c = torch.zeros_like(u)      # the chunk-carried direction
+        discarded = []                  # read-backs of discarded steps
         while step < nsteps:
+            if (chunk_on or pipe_on) and single_left <= 0 and step > 0:
+                u_entry = u     # chunk-granular rollback fallback
+                ts = time.perf_counter()
+                state = dict(res_best=res_best, stall=stall_count, cfl=cfl,
+                             cfl_cap=cfl_cap, rtol=rtol,
+                             rtol_floor=rtol_floor,
+                             raise_relres=raise_relres, res=res,
+                             resold=resold, initres=initres)
+                if chunk_on:
+                    carry, rows = self._program(
+                        "chunk", mesh, lmesh, bl, u).run(u, du_c, u_best,
+                                                         **state)
+                    du_c = carry["du"]
+                else:
+                    kb = min(self.checkpoint_every if (
+                        self.checkpoint_path and self.checkpoint_every)
+                        else 50, nsteps - step)
+                    carry, rows = pipeline_burst(
+                        self, self._program("step", mesh, lmesh, bl, u),
+                        max(1, kb), u, u_best, **state)
+                u, u_best = carry["u"], carry["u_best"]
+                res_best, stall_count = carry["res_best"], carry["stall"]
+                cfl, cfl_cap = carry["cfl"], carry["cfl_cap"]
+                rtol, rtol_floor = carry["rtol"], carry["rtol_floor"]
+                raise_relres = carry["raise_relres"]
+                res, resold = carry["res"], carry["resold"]
+                flag, n_ch = carry["flag"], carry["nsteps"]
+                info.total_lin_iters += carry["iters"]
+                info.device_lin_iters += carry["iters"]
+                discarded += carry.get("discarded", [])
+                dt = (time.perf_counter() - ts) / max(n_ch, 1)
+                for k, (r_k, c_k, _, it_k) in enumerate(rows):
+                    info.history.append((step + k + 1, r_k / initres, r_k,
+                                         c_k, int(it_k)))
+                    info.step_times.append((dt, int(it_k)))
+                    if logger:
+                        logger.log(step + k + 1, r_k / initres, r_k,
+                                   lin_iters=int(it_k), cfl=c_k)
+                if (logger and n_ch > 0 and self.functional_fn is not None
+                        and self.functional_every):
+                    # one functional record a burst, as the JAX package
+                    logger.log(step + n_ch, res / initres, res, cfl=cfl,
+                               **dict(zip(("entropy", "CL", "CDp", "CDsf"),
+                                          torch.stack(self.functional_fn(
+                                              mesh, u)).tolist())))
+                step += n_ch
+                if flag in (0, 1):
+                    self._save(u, step, cfl, res, initres, rtol, rtol_floor,
+                               raise_relres, resold, cfl_cap)
+                if flag == 1:            # converged inside the chunk
+                    break
+                if flag == 2:            # NaN or blowup: host recovery
+                    nan_retries += 1
+                    if nan_retries > 5:
+                        raise NumericalError(
+                            "implicit solve diverged: residual NaN/inf")
+                    if res_best < float("inf"):
+                        u = u_best
+                        res = resold = res_best
+                    else:
+                        u = u_entry
+                        res = resold
+                    cfl_cap = max(cfl * 0.25, 1.0)
+                    cfl = max(cfl * 0.1, 1.0)
+                    rtol = rtol_floor = self.lin.rtol
+                    raise_relres = 0.0
+                    omega_cap = 0.2
+                    du_c = torch.zeros_like(u)
+                    if warm:
+                        du_prev = torch.zeros_like(u)
+                    single_left = 5
+                    print(f"  BE: chunk anomaly, retrying from "
+                          f"{'best' if res_best < float('inf') else 'entry'}"
+                          f" state at CFL {cfl:.1f} (retry {nan_retries}/5)")
+                    continue
+                if flag == 3:            # frozen residual (4x bit-identical)
+                    # same response as the single-step frozen-state guard
+                    stall_count = 0
+                    rtol = rtol_floor = self.lin.rtol
+                    cfl_cap = max(cfl * 0.25, 1.0)
+                    cfl = max(cfl * 0.1, 1.0)
+                    du_c = torch.zeros_like(u)
+                    single_left = 5
+                    print(f"  BE: frozen residual in chunk, dropping to CFL "
+                          f"{cfl:.1f} with tight linear solves")
+                    continue
+                nan_retries = 0          # full healthy chunk
+                omega_cap = 1.0
+                continue
+            single_left -= 1
             if step > 0:
                 rc = (linear_ramp(self.cfg.cfl_init, self.cfg.cfl_fin,
                                   self.cfg.rampstart, self.cfg.rampend,
@@ -659,9 +866,15 @@ class SteadyBackwardEuler:
             if not defl_on:
                 U_defl = None     # space from before a recovery/gate-close
             ts = time.perf_counter()
-            u, res_new, iters, du, U_new = self._step(
-                mesh, u, cfl, rtol, omega_cap, lmesh=lmesh, bl=bl,
-                du0=du_prev, U0=U_defl, defl=defl_on, return_carry=True)
+            if bake_on:
+                u, res_new, iters = self._baked_step(mesh, lmesh, bl, u, cfl,
+                                                     rtol, omega_cap)
+                du = U_new = None
+                info.device_lin_iters += iters
+            else:
+                u, res_new, iters, du, U_new = self._step(
+                    mesh, u, cfl, rtol, omega_cap, lmesh=lmesh, bl=bl,
+                    du0=du_prev, U0=U_defl, defl=defl_on, return_carry=True)
             if warm:
                 du_prev = du
             if defl_on:
@@ -750,20 +963,14 @@ class SteadyBackwardEuler:
             if logger:
                 logger.log(step, res / initres, res, lin_iters=int(iters),
                            cfl=cfl, **fnl_log)
-            if (self.checkpoint_path and self.checkpoint_every
-                    and step % self.checkpoint_every == 0):
-                state = self._checkpoint_state(u)
-                if state is not None:
-                    save_checkpoint(self.checkpoint_path, state, step=step,
-                                    cfl=cfl, res=res, initres=initres,
-                                    extra={"rtol": rtol,
-                                           "rtol_floor": rtol_floor,
-                                           "raise_relres": raise_relres,
-                                           "resold": resold,
-                                           "cfl_cap": min(cfl_cap, 1e300)})
+            if self.checkpoint_every and step % self.checkpoint_every == 0:
+                self._save(u, step, cfl, res, initres, rtol, rtol_floor,
+                           raise_relres, resold, cfl_cap)
             if (res / initres <= self.cfg.tol
                     or (self.cfg.tol_abs and res <= self.cfg.tol_abs)):
                 break
+        info.capture_s = self._capture_seconds() - capture0
+        info.discarded_lin_iters = sum(int(rb.get()[1]) for rb in discarded)
         info.walltime = time.perf_counter() - t0
         info.steps = step
         info.initres = initres

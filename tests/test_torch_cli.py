@@ -20,10 +20,11 @@ output. They must give:
   - VTU, surface and volume arrays to 1e-10.
 
 The port's rerun with the same --checkpoint resumes from it. A missing mesh
-exits 1; --pipeline is refused; --devices 2 --device cpu (two gloo ranks)
-runs what the JAX CLI's --devices 2 runs (DistributedFlowCase.run_output
-on two virtual CPU devices); unsteady and explicit control files print
-what the JAX CLI prints; the CLI module imports with jax blocked. Also:
+exits 1; --pipeline runs step for step with the JAX CLI's --pipeline;
+--devices 2 --device cpu (two gloo ranks) runs what the JAX CLI's
+--devices 2 runs (DistributedFlowCase.run_output on two virtual CPU
+devices); unsteady and explicit control files print what the JAX CLI
+prints; the CLI module imports with jax blocked. Also:
 the perftest breakdown and the torch twin of __graft_entry__.entry().
 """
 
@@ -216,10 +217,16 @@ def test_cli_needs_the_card_unless_told(runs, capsys):
 @pytest.mark.parametrize("refusal", ["unsteady", "devices", "pipeline",
                                      "explicit", "devices_functionals_every"])
 def test_cli_refuses_unported_paths(runs, refusal):
-    """--pipeline is refused. --devices, refused until the distributed
-    path was ported, and unsteady and explicit control files, refused
-    until their steppers were, now run and print what the JAX CLI prints
-    on the same files:
+    """--pipeline, --devices, unsteady and explicit control files, each
+    refused until its path was ported, now run and print what the JAX CLI
+    prints on the same files:
+      - the cylinder ctrl and solverc (main to 1e-12) with --pipeline, both
+        CLIs in this process: the same main steps, the first AGREE step for
+        step (residuals to 1e-9 relative with a floor of 1e-12 of the
+        first, CFLs to 1e-6 as the JAX package's own pipeline test holds
+        them, the Krylov iterations those of the port's unpipelined run,
+        since the JAX CLI logs none inside a burst), the Krylov totals
+        within 10% and the functionals to 1e-8;
       - the cylinder ctrl and solverc (main to 1e-12) with --devices 2: the
         port's two gloo ranks (--device cpu; the CLI run in a subprocess,
         whose ranks write to its standard output) against the JAX CLI's
@@ -239,9 +246,33 @@ def test_cli_refuses_unported_paths(runs, refusal):
     tmp, msh = runs["tmp"], runs["msh"]
     argv = ["--mesh_file", msh, "--log_every", "1"]
     if refusal == "pipeline":
-        with pytest.raises(NotImplementedError, match="pipelined"):
-            _run(cli.main, [_ctrl(tmp)] + argv + ["--pipeline", "--device",
-                                                  "cpu"])
+        hist = {k: os.path.join(tmp, f"pipeline_{k}.jsonl")
+                for k in ("jax", "port")}
+        out = {}
+        for name, main, dev in (("jax", jax_cli.main, ["--platform", "cpu"]),
+                                ("port", cli.main, ["--device", "cpu"])):
+            rc, text = _run(main, [_ctrl(tmp)] + argv + [
+                "-options_file", SOLVERC, "--pipeline", "--history",
+                hist[name]] + dev)
+            assert rc == 0, text
+            out[name] = dict(parse_cli_output(text),
+                             rows=_jsonl(hist[name]))
+        j, t = out["jax"], out["port"]
+        jr, tr = j["rows"], t["rows"]
+        first = jr[0]["absres"]
+        assert len(tr) == len(jr) == t["main_steps"] == j["main_steps"] > AGREE
+        for a, b, c in zip(tr[:AGREE], jr[:AGREE], runs["port"]["rows"]):
+            assert a["step"] == b["step"] == c["step"]
+            assert abs(a["absres"] - b["absres"]) \
+                <= 1e-9 * b["absres"] + 1e-12 * first, a["step"]
+            assert abs(a["cfl"] - b["cfl"]) <= 1e-6 * b["cfl"], a["step"]
+            # the JAX CLI logs no Krylov iterations inside a burst: the
+            # port's unpipelined run's stand in
+            assert a["lin_iters"] == c["lin_iters"], a["step"]
+        assert abs(t["main_iters"] - j["main_iters"]) <= 0.1 * j["main_iters"]
+        assert t["main_iters"] == sum(r["lin_iters"] for r in tr)
+        for k in FUNCTIONALS:
+            assert abs(t[k] - j[k]) <= max(1e-8 * abs(j[k]), 1e-12), k
         return
     if refusal.startswith("devices"):
         ctrl = _ctrl(tmp)
@@ -322,6 +353,9 @@ def test_cli_and_new_modules_import_without_jax():
         "import fvens_tpu_torch.fv.diffusion, fvens_tpu_torch.solver.unsteady\n"
         "import fvens_tpu_torch.solver.ilu, fvens_tpu_torch.solver.lines\n"
         "import fvens_tpu_torch.solver.multigrid\n"
+        "import fvens_tpu_torch.solver.device_stepping\n"
+        "import fvens_tpu_torch.solver.givens_kernels\n"
+        "import fvens_tpu_torch.solver.graph_if\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m.split('.')[0] in ('fvens_tpu', 'jax'))]\n"
         "assert not bad, bad\n"

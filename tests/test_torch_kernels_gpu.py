@@ -1,8 +1,11 @@
-"""The CUDA kernels (banded_apply, the fused bsgs apply, row_set) against
-their plain PyTorch twins, on the card. The banded kernels at both block
-sizes they are built for: the flow equations' 4x4 blocks and the scalar
-diffusion's 1x1 blocks (the `_v1` tests, on the heat equation's operators
-and on random ones).
+"""The CUDA kernels (banded_apply, the fused bsgs apply, row_set,
+givens_column) against their plain PyTorch twins, on the card. The banded
+kernels at both block sizes they are built for: the flow equations' 4x4
+blocks and the scalar diffusion's 1x1 blocks (the `_v1` tests, on the heat
+equation's operators and on random ones). The Givens kernel bit for bit;
+the device-form step captured as a CUDA graph with IF nodes
+(solver/device_stepping.py) equal to the eager one bit for bit, with its
+launches counted on the card.
 
 Needs a CUDA card and nvcc: marked `gpu`, and each test skips when
 torch.cuda.is_available() is false. Imports no JAX, so it runs where JAX is
@@ -550,3 +553,127 @@ def test_row_set_refuses_bad_input(cuda):
         rk.row_set(V, 8, w, hn)                        # row out of range
     with pytest.raises(ValueError):
         rk.row_set(torch.zeros(16, 8, device=cuda).T, 0, w, hn)
+
+
+# ---------------------------------------------------------------------------
+# the Givens column kernel and the captured (IF-node) device step
+# ---------------------------------------------------------------------------
+
+def _givens_state(rng, j, m, dtype, device, nan=False):
+    theta = rng.uniform(-np.pi, np.pi, m)
+    cs, sn = np.cos(theta), np.sin(theta)
+    cs[j:] = sn[j:] = 0
+    g = np.zeros(m + 1)
+    g[:j + 1] = rng.standard_normal(j + 1) * 10.0 ** rng.uniform(-8, 2)
+    h = rng.standard_normal(j + 1) * 10.0 ** rng.uniform(-5, 5, j + 1)
+    if nan:
+        h[j // 2] = np.nan
+    hn = abs(rng.standard_normal()) * 10.0 ** rng.uniform(-12, 3)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return dict(h=t(h), hn=t(hn), H=torch.full((m + 1, m), 7.0, dtype=dtype,
+                                                device=device),
+                cs=t(cs), sn=t(sn), g=t(g), res=t(-1.0),
+                tol=t(abs(g[0]) * 1e-3),
+                live=torch.tensor(True, device=device),
+                iters=torch.tensor(3, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_givens_kernel_equals_its_twin_bit_for_bit(cuda, dtype):
+    """Every entry the kernel writes (H's column, cs, sn, g, res, live,
+    iters) equals the twin's on the CPU, bit for bit, over iterations of a
+    restart of 90, with a NaN column and a dead call among them."""
+    from fvens_tpu_torch.solver import givens_kernels as gk
+    gk.load_library()
+    rng = np.random.default_rng(0)
+    names = ("h", "hn", "H", "cs", "sn", "g", "res", "tol", "live", "iters")
+    for j, nan, live in ((0, False, True), (1, False, True),
+                         (17, False, True), (45, True, True),
+                         (89, False, True), (30, False, False)):
+        st = _givens_state(rng, j, 90, dtype, cuda, nan)
+        st["live"].fill_(live)
+        cpu = {k: v.cpu() for k, v in st.items()}
+        n0 = gk.givens_column.launches
+        gk.givens_column(*(st[k] for k in names[:2]), j,
+                         *(st[k] for k in names[2:]))
+        gk.givens_plain(*(cpu[k] for k in names[:2]), j,
+                        *(cpu[k] for k in names[2:]))
+        torch.cuda.synchronize()
+        assert gk.givens_column.launches == n0 + 1
+        for k in ("H", "cs", "sn", "g", "res", "live", "iters"):
+            assert np.array_equal(st[k].cpu().numpy(), cpu[k].numpy(),
+                                  equal_nan=True), (j, k)
+
+
+def _cylinder_step(dev, mesh=(64, 32)):
+    """The cylinder case's main solver, mesh, f32 mesh, band analysis and a
+    perturbed free-stream state on `dev` (banded bsgs x6, mixed)."""
+    from fvens_tpu_torch.cases import bigmesh_case
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    case, cm, u0 = bigmesh_case.build_case(dev, *mesh)
+    solver = case._make_solver(build_space(case.cfg), case.cfg.main)
+    u = u0 * (1.0 + 0.01 * torch.from_numpy(
+        np.random.default_rng(5).standard_normal(tuple(u0.shape))).to(dev))
+    return solver, cm, cm.to(torch.float32), solver._banded(cm), u
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_captured_step_equals_the_eager_device_step(cuda, blocked,
+                                                    monkeypatch):
+    """The device-form step captured as a CUDA graph (IF nodes on `live`,
+    on the restarts and, blocked, on the second MGS pass) replays to the
+    eager (masked) device step's state, residual and Krylov iterations bit
+    for bit, at two CFLs through the same graph; the device counters count
+    one launch of each kernel per live Krylov iteration (plus the cycle's
+    residual matvec and, blocked, its trailing preconditioner apply)."""
+    from fvens_tpu_torch.solver import device_counts, linear
+    from fvens_tpu_torch.solver.device_stepping import StepProgram
+    if blocked:
+        monkeypatch.setattr(linear, "_BLOCKED_N_THRESHOLD", 0)
+    solver, cm, lmesh, bl, u = _cylinder_step(cuda)
+    f = lambda x: torch.tensor(x, dtype=torch.float64, device=cuda)
+    device_counts.enable(cuda)
+    try:
+        prog = StepProgram(solver, cm, lmesh, bl, u)
+        prog(u, 50.0, 1e-2, 1.0)        # the warm-up and the capture
+        for cfl in (500.0, 2000.0):
+            want = solver._device_step(cm, u, f(cfl), f(1e-2), f(1.0),
+                                       lmesh=lmesh, bl=bl)[:3]
+            device_counts.zero()
+            got = prog(u, cfl, 1e-2, 1.0)
+            torch.cuda.synchronize()
+            n = device_counts.read(cuda)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), cfl
+            its = int(got[2])
+            assert its > 0 and n["givens_column"] == its
+            assert n["banded_apply"] == its + 1
+            assert n["bsgs_apply"] == its + (1 if blocked else 0)
+            assert n["row_set"] == (its if blocked else 0)
+    finally:
+        device_counts.disable()
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_if_node_cycle_counts_what_the_masked_cycle_counts(cuda, blocked):
+    """gmres_device captured with IF nodes takes as many iterations as the
+    eager masked cycle and gives the same x, on the cylinder's banded
+    operators, restarted (restart 10, maxiter 35)."""
+    from fvens_tpu_torch.solver import linear
+    from fvens_tpu_torch.solver.device_stepping import capture_graph
+    solver, cm, lmesh, bl, u = _cylinder_step(cuda)
+    _, lrhs, ops = solver.step_operators(cm, u, 500.0, lmesh, bl)
+    mv, pc = solver._linear_operators(ops)
+    rtol = torch.tensor(1e-6, dtype=torch.float64, device=cuda)
+    ws = linear.KrylovWorkspace(lrhs.numel(), 10, lrhs.dtype, cuda, blocked)
+    x0 = torch.zeros_like(lrhs)
+    xe, ite, re = linear.gmres_device(mv, lrhs, x0, pc, rtol, 10, 35,
+                                      blocked=blocked, ws=ws)
+    xe, ite, re = xe.clone(), int(ite), float(re)
+    graph, pool, out = capture_graph(cuda, lambda ctl: linear.gmres_device(
+        mv, lrhs, x0, pc, rtol, 10, 35, blocked=blocked, ws=ws, ctl=ctl))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(out[1]) == ite > 10
+    assert float(out[2]) == re
+    assert torch.equal(out[0], xe)
