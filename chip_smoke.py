@@ -40,8 +40,9 @@ wrappers with the launch counts zeroed just before it and read just after:
   - the device-resident stepping modes on the 640x320 banded cylinder:
     pipelined stepping, chunks of device_steps = 8 and baked steps, each
     step a CUDA graph whose Krylov iterations sit in IF nodes, through
-    K1, K1b, K2, the Givens kernel (csrc/givens_column.cu) and the IF
-    nodes' set-condition kernel (csrc/graph_if.cu).
+    K1, K1b, K2, the Givens kernel (csrc/givens_column.cu, which also
+    decides the next iteration's node) and the compare-and-set kernel
+    that decides the other nodes (csrc/graph_if.cu).
 
 In order:
 
@@ -276,9 +277,18 @@ limit.
  23. I: device-resident stepping (solver/device_stepping.py). I5, the
      Givens kernel against its twin bit for bit (f32 and f64, iterations
      GIVENS_J of FGMRES(90), a NaN column, a dead call) and timed beside
-     its twin on the card and its bound; IF_NODES IF nodes replayed with
-     their predicate true and false (each body ran exactly when it held),
-     a dead node timed against the host's way of deciding (.item()). I1,
+     its twin on the card and its bound; IF_NODES IF nodes in the generic
+     form (a set-condition kernel in front of each) and in the chained form
+     (each node set where its predicate is computed), replayed with their
+     condition true and false (each body ran exactly when it held), a dead
+     and a live node of each form timed per node, against the host's way
+     of deciding (.item()); the compare-and-set kernel against its twin and
+     the torch expressions it replaces, bit for bit at f32 and f64 (values
+     straddling the product's rounding), and timed; a Krylov chain of
+     IF_NODES Givens updates in groups, stopped part way by its tolerance:
+     exactly the live bodies ran, the state equals the twin's, the nodes
+     reached counted on the card; gmres_device on the 640x320 step-0
+     banded operators captured and eager, equal bit for bit. I1,
      bigmesh_case.run_solve(pipeline=True) at 640x320, a warm-up and a
      timed solve; I2, device_steps = 8 and bake_mesh, one timed solve
      each; every burst, chunk and baked step queued under
@@ -287,7 +297,10 @@ limit.
      iterations within STEPPING_SLACK of step 4's single-step solve, and
      with the launches counted on the card (solver/device_counts): per
      Krylov iteration one row_set, one Givens update, K1b at least once,
-     K1 once or twice; ms per main step (with and without the graph
+     K1 once or twice, a compare-and-set launch at least once; no
+     set-condition kernel; the IF nodes reached per main step at most
+     2 x its Krylov iterations + 15 (printed per starter and per main step
+     of the timed solve); ms per main step (with and without the graph
      captures) and per Krylov iteration beside step 4's; traced main steps
      (the host-controlled and the captured step, a chunk) with the device
      busy share. I3, the three modes at STEPPING_CHECK_MESH against
@@ -298,9 +311,10 @@ Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
 kernel record (launches of banded_apply and banded_bsgs from the banded
 640x320 solve of step 4, of row_set from the gather 640x320 solve of step
-5, of givens_column and graph_if from I1's pipelined solve, counted on the
-card, and each path's counts under launches_by_path, the CLI of step 12
-and the paths of steps 15-23 among them, G1's, G2's and H2's summed over
+5, of givens_column, graph_if (IF nodes reached) and cond_set from I1's
+pipelined solve, counted on the card, and each path's counts under
+launches_by_path, the CLI of step 12 and the paths of steps 15-23 among
+them, G1's, G2's and H2's summed over
 their ranks, phase I's 640x320 paths counted on the card), and the one
 before that the seconds each phase took.
 """
@@ -329,6 +343,10 @@ KERNELS = {                     # name: (source, the TPU kernel it replaces)
     "graph_if": ("fvens_tpu_torch/csrc/graph_if.cu",
                  "fvens_tpu/solver/linear.py:424 (lax.while_loop, lax.cond "
                  "at :471; no Pallas kernel)"),
+    "cond_set": ("fvens_tpu_torch/csrc/graph_if.cu",
+                 "fvens_tpu/solver/linear.py:472 (lax.cond's wn1 < 0.7 wn0; "
+                 "the while loop's res > tol at :385 and the restarts' at "
+                 ":527; no Pallas kernel)"),
 }
 TIMED_RUNS = 50
 # The least time of a kernel: its bytes (each input read once, each output
@@ -984,7 +1002,7 @@ def zero_counts():
     from fvens_tpu_torch.solver import rowset_kernels as rk
     bk.banded_apply.launches = bk.bsgs_apply.launches = 0
     rk.row_set.launches = gk.givens_column.launches = 0
-    graph_if.GraphControl.launches = 0
+    graph_if.GraphControl.launches = graph_if.cond_set.launches = 0
 
 
 def read_counts() -> dict:
@@ -994,7 +1012,8 @@ def read_counts() -> dict:
     from fvens_tpu_torch.solver import givens_kernels as gk
     from fvens_tpu_torch.solver import graph_if
     return dict(kernel_launches(), givens_column=gk.givens_column.launches,
-                graph_if=graph_if.GraphControl.launches)
+                graph_if=graph_if.GraphControl.launches,
+                cond_set=graph_if.cond_set.launches)
 
 
 def fused_vs_sequence(dev):
@@ -3359,7 +3378,8 @@ def device_launches(dev) -> dict:
     n = device_counts.read(dev)
     return {"banded_apply": n["banded_apply"], "banded_bsgs": n["bsgs_apply"],
             "row_set": n["row_set"], "givens_column": n["givens_column"],
-            "graph_if": n["graph_if"]}
+            "graph_if": n["graph_if"], "set_if": n["set_if"],
+            "cond_set": n["cond_set"]}
 
 
 def traced_busy(dev, fn) -> dict:
@@ -3432,8 +3452,54 @@ def step_traces(dev, case, cm, name: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def solve_counts(dev, marks: dict):
+    """Inside: each SteadyFlowCase starter and main solve writes into
+    `marks` ("starter", "main"; the last solve's kept) the launches
+    counted on the card across it (solver/device_counts must be on) and
+    its SolveInfo."""
+    import torch
+    from fvens_tpu_torch.cases.casesolvers import SteadyFlowCase
+    saved = SteadyFlowCase.execute_starter, SteadyFlowCase.execute_main
+
+    def counted(name, fn, info):
+        def run(self, *a, **k):
+            torch.cuda.synchronize()
+            n0 = device_launches(dev)
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            n1 = device_launches(dev)
+            marks[name] = ({key: n1[key] - n0[key] for key in n1},
+                           info(self, out))
+            return out
+        return run
+    SteadyFlowCase.execute_starter = counted(
+        "starter", saved[0], lambda case, out: case.starter_info)
+    SteadyFlowCase.execute_main = counted("main", saved[1],
+                                          lambda case, out: out[1])
+    try:
+        yield
+    finally:
+        SteadyFlowCase.execute_starter, SteadyFlowCase.execute_main = saved
+
+
+def per_step(counts: dict, info) -> dict:
+    """A solve's IF nodes reached, set-condition and compare-and-set
+    launches and Givens updates per accepted step, beside its Krylov
+    iterations per step (those of discarded speculative steps included, as
+    in the counts) and the limit on the nodes, 2 x iterations + 15."""
+    n = max(info.steps, 1)
+    its = (info.device_lin_iters + info.discarded_lin_iters) / n
+    return dict(steps=info.steps, device_krylov_iters_per_step=its,
+                if_nodes_per_step=counts["graph_if"] / n,
+                if_node_limit_per_step=2 * its + 15,
+                set_if_per_step=counts["set_if"] / n,
+                cond_set_per_step=counts["cond_set"] / n,
+                givens_per_step=counts["givens_column"] / n)
+
+
 def stepping_path(dev, name: str, stepping: dict, single: dict,
-                  warmup: bool) -> tuple:
+                  warmup: bool, keep: dict) -> tuple:
     """I1/I2: bigmesh_case.run_solve at 640x320 under `stepping`, with the
     launches counted on the card from just before to just after (both
     solves where `warmup`). Checks: converged to 1e-10 with a finite state;
@@ -3443,17 +3509,18 @@ def stepping_path(dev, name: str, stepping: dict, single: dict,
     least once and K1 at least once and fewer than twice (the iterations
     of the pipeline's discarded speculative steps included; a program's
     eager warm-up before its capture is not counted). Traces main
-    steps of the case (step_traces). Returns (report, timing and traces,
-    launches)."""
+    steps of the case (step_traces). `keep` receives the case and its mesh.
+    Returns (report, timing and traces, launches)."""
     import torch
     from fvens_tpu_torch.cases import bigmesh_case
     from fvens_tpu_torch.solver import device_counts
-    keep = {}
+    marks = {}
     torch.cuda.synchronize()
     device_counts.enable(dev)
     try:
-        u, rep = bigmesh_case.run_solve(dev, warmup=warmup,
-                                        stepping=stepping, keep=keep)
+        with solve_counts(dev, marks):
+            u, rep = bigmesh_case.run_solve(dev, warmup=warmup,
+                                            stepping=stepping, keep=keep)
         torch.cuda.synchronize()
         launches = device_launches(dev)
     finally:
@@ -3482,9 +3549,12 @@ def stepping_path(dev, name: str, stepping: dict, single: dict,
         with phase(f"I: traced main steps ({name})"):
             timing["traces"] = step_traces(dev, keep["case"], keep["mesh"],
                                            name)
+    steps = {k: per_step(*marks[k]) for k in ("starter", "main")}
+    timing["per_step"] = steps
     card_line(f"I cylinder 640x320 banded, {name}"
               + (" (warm-up + timed)" if warmup else " (one timed solve)"),
               dict(rep, **timing, launches=launches))
+    print(f"I {name} per step (timed solve)", json.dumps(steps), flush=True)
     check(rep["converged"] and rep["abs_res"] <= bigmesh_case.TOL_ABS,
           f"I {name}: the solve did not converge to {bigmesh_case.TOL_ABS}: "
           f"{rep['abs_res']!r}")
@@ -3499,10 +3569,16 @@ def stepping_path(dev, name: str, stepping: dict, single: dict,
     check(dits > 0 and launches["givens_column"] == dran
           and launches["row_set"] == ran and launches["banded_bsgs"] >= ran
           and ran <= launches["banded_apply"] < 2 * ran
-          and launches["graph_if"] >= dran,
+          and launches["graph_if"] >= dran and launches["cond_set"] >= dran
+          and launches["set_if"] == 0,
           f"I {name}: launches {launches} for {ran} Krylov iterations run, "
           f"{dran} of them in device-form steps "
           f"({rep['discarded_krylov_iters_all']} in discarded ones)")
+    main = steps["main"]
+    check(main["if_nodes_per_step"] <= main["if_node_limit_per_step"],
+          f"I {name}: {main['if_nodes_per_step']} IF nodes reached per main "
+          f"step, above 2 x iterations + 15 = "
+          f"{main['if_node_limit_per_step']}")
     return rep, timing, launches
 
 
@@ -3694,13 +3770,18 @@ def givens_checks(dev) -> list:
 
 
 def graph_if_checks(dev) -> dict:
-    """I5: IF_NODES IF nodes captured with graph_if (each body one small
-    add): replayed with the predicate true each body runs once, false none
-    does; the time per node of a dead iteration (replays with the
-    predicate false) against the host's way of deciding, reading the
+    """I5: IF_NODES IF nodes in each of two forms, replayed with their
+    condition true and false (each body ran exactly when it held), timed
+    per node in this call: the generic form, GraphControl.run_if (a
+    set-condition kernel in front of each node, the body one small add),
+    and the chained form the Krylov chain uses, each node's handle set
+    where its predicate is computed (the first by the compare-and-set
+    kernel, each body one compare-and-set launch that sets the next node
+    and writes a flag). Beside them the host's way of deciding, reading the
     predicate back (a synchronizing .item() per decision)."""
     import torch
     from fvens_tpu_torch.solver.device_stepping import capture_graph
+    from fvens_tpu_torch.solver.graph_if import GREATER, cond_set
     pred = torch.tensor(True, device=dev)
     y = torch.zeros((), device=dev)
 
@@ -3719,6 +3800,34 @@ def graph_if_checks(dev) -> dict:
     pred.fill_(True)
     live = event_ms(graph.replay) / IF_NODES
 
+    flag = torch.ones((), device=dev)
+    zero = torch.zeros((), device=dev)
+    ran = torch.zeros(IF_NODES, dtype=torch.bool, device=dev)
+
+    def chained(ctl):
+        hs = [ctl.handle() for _ in range(IF_NODES)]
+        cond_set(GREATER, flag, zero, handle=hs[0])
+        for i, h in enumerate(hs):
+            nxt = hs[i + 1] if i + 1 < IF_NODES else None
+            ctl.node(h, lambda _, i=i, nxt=nxt: cond_set(
+                GREATER, flag, zero, out=ran[i], handle=nxt))
+        return ()
+    cgraph, cpool, _ = capture_graph(dev, chained)
+    cgraph.replay()
+    torch.cuda.synchronize()
+    n_live = int(ran.sum())
+    ran.zero_()
+    flag.zero_()
+    cgraph.replay()
+    torch.cuda.synchronize()
+    n_dead = int(ran.sum())
+    check(n_live == IF_NODES and n_dead == 0,
+          f"graph_if chained: {n_live} bodies ran with the chain live, "
+          f"{n_dead} with it dead (want {IF_NODES}, 0)")
+    chained_dead = event_ms(cgraph.replay) / IF_NODES
+    flag.fill_(1.0)
+    chained_live = event_ms(cgraph.replay) / IF_NODES
+
     def host_decision():
         if pred.item():
             y.add_(1.0)
@@ -3727,11 +3836,221 @@ def graph_if_checks(dev) -> dict:
         t0 = time.perf_counter()
         host_decision()
         t.append((time.perf_counter() - t0) * 1e3)
-    rec = dict(nodes=IF_NODES, max_abs_err=err, ms=dead,
-               live_node_ms=live, plain_ms=float(np.median(t)),
+    rec = dict(nodes=IF_NODES, max_abs_err=err, ms=chained_dead,
+               live_node_ms=chained_live, set_kernel_dead_node_ms=dead,
+               set_kernel_live_node_ms=live, plain_ms=float(np.median(t)),
                plain="the host's decision: pred.item() and a launch")
     rec["bound_ms"], rec["bound_by"] = bound(1, 0, "float32")
     print("graph_if check", json.dumps(rec), flush=True)
+    del graph, pool, cgraph, cpool
+    return rec
+
+
+def straddling(rng, dtype, n=16) -> list:
+    """(a, b) pairs of the blocked path's test a < 0.7 b at `dtype`: b
+    where 0.7 b rounds otherwise at f32 than at f64 (at f64: random b),
+    a the product rounded at dtype, its two neighbours and (f32) the
+    product rounded from f64; zeros, infinities and NaNs."""
+    npdt = np.float32 if dtype == "float32" else np.float64
+    b = (rng.standard_normal(20000)
+         * 10.0 ** rng.uniform(-3, 3, 20000)).astype(npdt)
+    p = npdt(0.7) * b
+    wide = (0.7 * b.astype(np.float64)).astype(npdt)
+    pick = np.flatnonzero(p != wide)[:n] if npdt is np.float32 \
+        else np.arange(n)
+    pairs = []
+    for i in pick:
+        for a in (p[i], np.nextafter(p[i], npdt(-np.inf)),
+                  np.nextafter(p[i], npdt(np.inf)), wide[i]):
+            pairs.append((a, b[i]))
+    special = (0.0, -0.0, np.inf, -np.inf, np.nan, 1.0)
+    pairs += [(npdt(x), npdt(y)) for x in special for y in special]
+    return pairs
+
+
+def cond_set_checks(dev) -> dict:
+    """I5: the compare-and-set kernel (graph_if.cond_set) against its twin
+    (cond_plain) and against the torch expressions it replaces, bit for
+    bit, at f32 and f64: hn < 0.7 * wn0 on values that straddle the
+    product's rounding, beta > tol and res > tol on the same pairs, and
+    flag == 0 on int32 flags and float zeros; timed (f32, LESS: a call,
+    its device time, the twin and the torch form on the card) beside its
+    bound."""
+    import torch
+    from fvens_tpu_torch.cases.profile_step import device_ms
+    from fvens_tpu_torch.solver.graph_if import (GREATER, LESS, ZERO,
+                                                 cond_plain, cond_set)
+    rng = np.random.default_rng(11)
+    n = 0
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        for a, b in straddling(rng, dname):
+            ta = torch.tensor(a, dtype=dtype, device=dev)
+            tb = torch.tensor(b, dtype=dtype, device=dev)
+            for op, want in ((LESS, ta < 0.7 * tb), (GREATER, ta > tb),
+                             (ZERO, ta == 0)):
+                got = cond_set(op, ta, tb, 0.7 if op == LESS else 1.0)
+                twin = cond_plain(op, ta, tb, 0.7 if op == LESS else 1.0)
+                n += 1
+                check(bool(got) == bool(twin) == bool(want),
+                      f"cond_set: op {op} at {dname} on ({a!r}, {b!r}): "
+                      f"kernel {bool(got)}, twin {bool(twin)}, torch "
+                      f"{bool(want)}")
+    for f in (0, 1, 2, 3, -1):
+        tf = torch.tensor(f, dtype=torch.int32, device=dev)
+        check(bool(cond_set(ZERO, tf)) == (f == 0),
+              f"cond_set: int32 flag {f} == 0")
+        n += 1
+    hn = torch.tensor(0.69, dtype=torch.float32, device=dev)
+    wn0 = torch.tensor(1.0, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.bool, device=dev)
+    kern = lambda: cond_set(LESS, hn, wn0, 0.7, out=out)
+    rec = dict(dtype="float32", cases=n, max_abs_err=0.0, ms=event_ms(kern),
+               device_ms=device_ms(kern, n=200),
+               plain_ms=event_ms(lambda: cond_plain(LESS, hn, wn0, 0.7)),
+               torch_form_ms=event_ms(lambda: hn < 0.7 * wn0),
+               torch_form="hn < 0.7 * wn0 (two launches)")
+    # two scalars read, one bool written; one product and one comparison
+    rec["bound_ms"], rec["bound_by"] = bound(2 * 4 + 1, 2, "float32")
+    print("cond_set check", json.dumps(rec), flush=True)
+    return rec
+
+
+def chain_nodes(k: int, n: int, group: int) -> int:
+    """The IF nodes a Krylov chain of n iterations in groups of `group`
+    reaches when it stops after k: every group's node, and the inner nodes
+    of the groups that began live."""
+    live_groups = -(-k // group)
+    return -(-n // group) + min(n, live_groups * group) - live_groups
+
+
+def chain_checks(dev) -> dict:
+    """I5: a cycle's Krylov chain as gmres_device captures it
+    (NodeControl.run_chain: groups of graph_if.GROUP under group nodes,
+    iteration j + 1's node decided by iteration j's Givens update), on
+    IF_NODES iterations of one Givens update each at f32, with a tolerance
+    that stops it part way: replayed, exactly the first k bodies ran (k as
+    the twin's run of the same updates gives it), the Krylov state equals
+    the twin's bit for bit, and the IF nodes reached, counted on the card,
+    are chain_nodes(k); the compare-and-set kernel launched once and no
+    set-condition kernel."""
+    import torch
+    from fvens_tpu_torch.solver import device_counts
+    from fvens_tpu_torch.solver import givens_kernels as gk
+    from fvens_tpu_torch.solver.device_stepping import capture_graph
+    from fvens_tpu_torch.solver.graph_if import GREATER, GROUP
+    m = IF_NODES
+    rng = np.random.default_rng(7)
+    h, hn = rng.standard_normal(m + 1), abs(rng.standard_normal())
+    names = ("H", "cs", "sn", "g", "res", "live", "iters")
+    args = ("H", "cs", "sn", "g", "res", "tol", "live", "iters")
+
+    def state(device, tol):
+        t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt,
+                                                     device=device)
+        g = np.zeros(m + 1)
+        g[0] = 1.0
+        return dict(h=t(h), hn=t(hn), H=torch.zeros((m + 1, m),
+                                                    device=device),
+                    cs=torch.zeros(m, device=device),
+                    sn=torch.zeros(m, device=device), g=t(g), res=t(np.inf),
+                    tol=t(tol), beta=t(1.0), live=t(True, torch.bool),
+                    iters=t(0, torch.int32))
+
+    def twin(tol):
+        """The twin's run of the m updates (dead ones change nothing), and
+        the residual after each."""
+        st, res = state("cpu", tol), []
+        for j in range(m):
+            gk.givens_plain(st["h"][:j + 1], st["hn"], j,
+                            *(st[k] for k in args))
+            res.append(float(st["res"]))
+        return st, res
+    # the tolerance stops the chain at about half its iterations
+    tol = twin(0.0)[1][m // 2 - 1]
+    want = twin(tol)[0]
+    k = int(want["iters"])
+    check(1 < k < m, f"chain check: the twin ran {k} of {m} iterations")
+    st = state(dev, tol)
+    init = {key: v.clone() for key, v in st.items()}
+    ran = torch.zeros(m, dtype=torch.int32, device=dev)
+
+    def iteration(j, nxt, _):
+        ran[j].add_(1)
+        gk.givens_column(st["h"][:j + 1], st["hn"], j,
+                         *(st[key] for key in args), next_cond=nxt)
+
+    def body(ctl):
+        ctl.run_chain(m, GREATER, st["beta"], st["tol"], st["live"],
+                      iteration)
+        return ()
+    torch.cuda.synchronize()
+    device_counts.enable(dev)
+    try:
+        graph, pool, _ = capture_graph(dev, body)
+        for key, v in init.items():
+            st[key].copy_(v)
+        device_counts.zero()
+        graph.replay()
+        torch.cuda.synchronize()
+        counts = device_launches(dev)
+    finally:
+        device_counts.disable()
+    ran_h = ran.cpu().numpy()
+    check(ran_h.tolist() == [1] * k + [0] * (m - k),
+          f"chain check: bodies ran {ran_h.tolist()}, want the first {k}")
+    for key in names:
+        check(np.array_equal(st[key].cpu().numpy(), want[key].numpy(),
+                             equal_nan=True),
+              f"chain check: {key} differs from the twin's")
+    nodes = chain_nodes(k, m, GROUP)
+    check(counts["graph_if"] == nodes and counts["givens_column"] == k
+          and counts["cond_set"] == 1 and counts["set_if"] == 0,
+          f"chain check: counts {counts}, want {nodes} IF nodes, {k} Givens "
+          "updates, one compare-and-set, no set-condition kernel")
+    rec = dict(iterations=m, live=k, group=GROUP, nodes_reached=nodes,
+               dead_nodes=nodes - k, counts=counts)
+    print("graph_if chain check", json.dumps(rec), flush=True)
+    del graph, pool
+    return rec
+
+
+def gmres_capture_check(dev, solver, cm) -> dict:
+    """I5: gmres_device on the 640x320 cylinder's step-0 banded operators
+    (`solver`, the case's main solver, on its mesh `cm`: f32, FGMRES(90)
+    at rtol 1e-2, its blocked path), eager (masked) and captured (the
+    chained IF nodes) on the card: x, the Krylov iterations and the
+    residual equal bit for bit; the captured solve timed per Krylov
+    iteration."""
+    import torch
+    from fvens_tpu_torch.cases.casesolvers import initial_state
+    from fvens_tpu_torch.solver import linear
+    from fvens_tpu_torch.solver.device_stepping import capture_graph
+    u0 = initial_state(solver.space, cm)
+    lmesh, bl = cm.to(torch.float32), solver._banded(cm)
+    _, lrhs, ops = solver.step_operators(cm, u0, solver.cfg.cfl_init,
+                                         lmesh, bl)
+    mv, pc = solver._linear_operators(ops)
+    m = solver.lin.restart
+    rtol = torch.tensor(1e-2, dtype=torch.float64, device=dev)
+    x0 = torch.zeros_like(lrhs)
+    ws = linear.KrylovWorkspace(lrhs.numel(), m, lrhs.dtype, dev, True)
+    xe, ite, re = linear.gmres_device(mv, lrhs, x0, pc, rtol, m, m, ws=ws)
+    xe, ite, re = xe.clone(), int(ite), float(re)
+    graph, pool, out = capture_graph(dev, lambda ctl: linear.gmres_device(
+        mv, lrhs, x0, pc, rtol, m, m, ws=ws, ctl=ctl))
+    graph.replay()
+    torch.cuda.synchronize()
+    rec = dict(n=lrhs.numel(), dtype=str(lrhs.dtype)[6:], restart=m,
+               iterations=int(out[1]), eager_iterations=ite,
+               relres=float(out[2]), eager_relres=re,
+               x_equal=bool(torch.equal(out[0], xe)))
+    check(rec["iterations"] == ite > 0 and rec["relres"] == re
+          and rec["x_equal"],
+          f"gmres_device captured vs eager on the 640x320 step-0 operators: "
+          f"{rec}")
+    rec["ms_per_krylov_iter"] = event_ms(graph.replay, runs=10) / ite
+    print("gmres_device capture check", json.dumps(rec), flush=True)
     del graph, pool
     return rec
 
@@ -3741,17 +4060,25 @@ def stepping_phases(dev, paths: dict, single: dict) -> dict:
     launches for the kernel record."""
     import torch
     torch.cuda.empty_cache()
-    with phase("I5: givens_column and graph_if against their twins"):
+    with phase("I5: givens_column, cond_set and graph_if against their "
+               "twins"):
         grows = givens_checks(dev)
         ifrec = graph_if_checks(dev)
+        condrec = cond_set_checks(dev)
+        chain_checks(dev)
     reports = {}
     for name, stepping in STEPPING_MODES:
         warmup = name == "pipeline"
         title = f"I cylinder 640x320 banded, {name}"
+        keep = {}
         with phase(f"I1/I2: {title}" + (" (warm-up + timed)" if warmup
                                         else "")):
             rep, timing, launches = stepping_path(dev, name, stepping,
-                                                  single, warmup)
+                                                  single, warmup, keep)
+        if warmup:
+            with phase("I5: gmres_device captured vs eager, 640x320"):
+                gmres_capture_check(dev, keep["case"]._main_solver,
+                                    keep["mesh"])
         paths[title] = launches
         reports[name] = dict(timing, main_wall_s=rep["main_wall_s"],
                              capture_s=rep["capture_s"],
@@ -3765,7 +4092,7 @@ def stepping_phases(dev, paths: dict, single: dict) -> dict:
         paths["I4 cli 160x80 --pipeline"] = stepping_cli(dev)
     print("I summary", json.dumps(dict(modes=reports, card=CARD)),
           flush=True)
-    return dict(givens=grows, graph_if=ifrec,
+    return dict(givens=grows, graph_if=ifrec, cond_set=condrec,
                 launches=paths["I cylinder 640x320 banded, pipeline"])
 
 
@@ -3926,11 +4253,22 @@ def main() -> int:
             library_ms=None,
             **{k: stepping["graph_if"][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "live_node_ms", "plain")},
-            shape=f"an IF node with its predicate false (a dead Krylov "
-                  f"iteration), per node of {IF_NODES}",
+                "live_node_ms", "set_kernel_dead_node_ms",
+                "set_kernel_live_node_ms", "plain")},
+            shape=f"an IF node its handle left dead (a dead Krylov "
+                  f"iteration), per node of {IF_NODES}; live: with a "
+                  f"one-kernel body",
             library="none in the card's torch (2.13's CUDAGraph."
                     "begin_capture_to_if_node is not there)"),
+        "cond_set": dict(
+            library_ms=None,
+            **{k: stepping["cond_set"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "device_ms", "cases", "torch_form_ms", "torch_form")},
+            shape="f32 hn < 0.7 * wn0, written to a bool (a call of its "
+                  "own)",
+            library="none: the torch form is two calls and sets no "
+                    "graph condition"),
     }
     # each kernel's launches from the 640x320 path of its slice that runs
     # it: the banded kernels from the banded solve, row_set from the gather
@@ -3939,7 +4277,8 @@ def main() -> int:
     launches = dict(paths["cylinder 640x320 banded"],
                     row_set=paths["cylinder 640x320 gather bsgs"]["row_set"],
                     givens_column=stepping["launches"]["givens_column"],
-                    graph_if=stepping["launches"]["graph_if"])
+                    graph_if=stepping["launches"]["graph_if"],
+                    cond_set=stepping["launches"]["cond_set"])
     print("phases", json.dumps(PHASES), flush=True)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=replaces,

@@ -13,14 +13,28 @@
 //
 // For Krylov iteration j of a cycle of at most m, with h[0..j] the new
 // column's projections and hn the norm of the orthogonalized vector, one
-// block of kThreads threads does, at the Krylov dtype:
-//   1. stage (h, hn), cs[0..j) and sn[0..j) in shared memory;
-//   2. thread 0 applies the j stored rotations to the column, forms
-//      rotation j (denom = sqrt(a a + b b), c = a / max(denom, tiny),
+// warp does, at the Krylov dtype:
+//   1. applies the j stored rotations to the column in chunks of 32: lane l
+//      loads rotation (base + l)'s c and s and entry base + l + 1 of the
+//      column, the next chunk's loads issued before this chunk's rotations
+//      run; every lane then runs the chunk's rotations on the same values,
+//      each operand broadcast from its lane's registers (__shfl_sync), the
+//      chunk unrolled without a branch (past rotation j - 1 the lanes hold
+//      exact identity rotations), so that the shuffles run ahead of the
+//      dependent chain and a rotation costs its two dependent operations
+//      (a product and a sum) and no load; lane l keeps the entry that
+//      rotation base + l finishes and stores it into H;
+//   2. forms rotation j (denom = sqrt(a a + b b), c = a / max(denom, tiny),
 //      s = b / max(denom, tiny)), updates g (g[j+1] = -s g[j],
 //      g[j] = c g[j]), writes res = |g[j+1]|,
-//      live <- live && res > tol && j + 1 < m, and iters += 1;
-//   3. all threads store the column into H[:, j] (zeros below row j + 1).
+//      live <- live && res > tol && j + 1 < m, iters += 1 (lane 0);
+//   3. stores the rest of column j of H (denom, then zeros below row j);
+//   4. inside a captured graph (solver/linear.py:gmres_device through
+//      solver/graph_if.py), lane 0 sets the condition of the next Krylov
+//      iteration's IF node (or of the next group's node) to the new live:
+//      that is what decides the next node, so the chain of iterations needs
+//      no set-condition kernel, and a dead iteration, which never runs,
+//      leaves every later node of its cycle at its default, dead.
 // A call with live false changes nothing, so a caller that cannot skip a
 // dead iteration (the eager, masked cycle) may still launch it.
 //
@@ -37,19 +51,20 @@
 //
 // What bounds it: nothing the card is fast at. It moves a few hundred bytes
 // and does about 6 j operations in a dependent chain, so a launch is
-// latency-bound: the launch itself and one thread's chain of j rotations
-// (a few cycles each). The design keeps the chain in shared memory and
-// registers; it does not try to parallelise a recurrence that has no
-// parallelism.
+// latency-bound: the launch itself, the loads of a chunk (one round trip
+// each, the next overlapped with the current) and a chain of j rotations of
+// two dependent operations each. The recurrence has no parallelism to use;
+// the design keeps loads and shuffles off it.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
 constexpr int kMaxRestart = 512;           // the wrapper refuses larger m
 constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -73,63 +88,81 @@ __device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarp)
 givens_column_kernel(const T* __restrict__ h, const T* __restrict__ hn, int j,
                      int m, T* __restrict__ H, T* __restrict__ cs,
                      T* __restrict__ sn, T* __restrict__ g,
                      T* __restrict__ res, const T* __restrict__ tol,
                      bool* __restrict__ live, int* __restrict__ iters,
-                     T tiny) {
-  __shared__ T col[kMaxRestart + 1];
-  __shared__ T scs[kMaxRestart];
-  __shared__ T ssn[kMaxRestart];
-  // every thread reads live before the barrier below; thread 0 writes it
-  // only after that barrier
+                     T tiny, cudaGraphConditionalHandle next, int set_next) {
+  // every lane reads live here; lane 0 writes it only at the end
   if (!*live) return;
-  for (int i = threadIdx.x; i <= j; i += kThreads) col[i] = h[i];
-  if (threadIdx.x == 0) col[j + 1] = *hn;
-  for (int i = threadIdx.x; i < j; i += kThreads) {
-    scs[i] = cs[i];
-    ssn[i] = sn[i];
+  const int lane = threadIdx.x;
+  const T b = *hn;
+  const T gj = g[j];
+  // rotation i mixes entries i and i + 1; `cur` carries entry i as the
+  // rotations before it left it, entry i + 1 is still the input's
+  T cur = h[0];
+  // past rotation j - 1 a lane holds the identity rotation: c 0, s -1 and
+  // entry -0 give cur' = 1 cur + 0 (-0) = cur bit for bit (-0 and NaN
+  // included), so a chunk runs all its 32 rotations without a branch
+  T c_next = T(0), s_next = T(-1), x_next = -T(0);
+  if (lane < j) {
+    c_next = cs[lane];
+    s_next = sn[lane];
+    x_next = h[lane + 1];
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // rotation i mixes entries i and i + 1; `cur` carries entry i as the
-    // rotations before it left it, entry i + 1 is still the input's
-    T cur = col[0];
-    for (int i = 0; i < j; ++i) {
-      const T c = scs[i], s = ssn[i], nxt = col[i + 1];
-      col[i] = add_rn(mul_rn(c, cur), mul_rn(s, nxt));
-      cur = add_rn(mul_rn(-s, cur), mul_rn(c, nxt));
+  for (int base = 0; base < j; base += kWarp) {
+    const T c_l = c_next, s_l = s_next, x_l = x_next;
+    const int i_next = base + kWarp + lane;
+    c_next = T(0);
+    s_next = T(-1);
+    x_next = -T(0);
+    if (i_next < j) {                     // the next chunk, in flight
+      c_next = cs[i_next];
+      s_next = sn[i_next];
+      x_next = h[i_next + 1];
     }
-    const T a = cur, b = col[j + 1];
-    const T denom = sqrt_rn(add_rn(mul_rn(a, a), mul_rn(b, b)));
+    T mine = T(0);
+#pragma unroll
+    for (int k = 0; k < kWarp; ++k) {
+      const T c = __shfl_sync(kFull, c_l, k);
+      const T s = __shfl_sync(kFull, s_l, k);
+      const T nxt = __shfl_sync(kFull, x_l, k);
+      const T out = add_rn(mul_rn(c, cur), mul_rn(s, nxt));
+      cur = add_rn(mul_rn(-s, cur), mul_rn(c, nxt));
+      if (lane == k) mine = out;
+    }
+    if (base + lane < j) H[static_cast<int64_t>(base + lane) * m + j] = mine;
+  }
+  const T a = cur;
+  const T denom = sqrt_rn(add_rn(mul_rn(a, a), mul_rn(b, b)));
+  for (int i = j + lane; i <= m; i += kWarp) {
+    H[static_cast<int64_t>(i) * m + j] = i == j ? denom : T(0);
+  }
+  if (lane == 0) {
     const T d = (denom < tiny) ? tiny : denom;    // a NaN stays NaN
     const T c = div_rn(a, d);
     const T s = div_rn(b, d);
-    col[j] = denom;
-    col[j + 1] = T(0);
     cs[j] = c;
     sn[j] = s;
-    const T gj = g[j];
     const T g1 = mul_rn(-s, gj);
     g[j + 1] = g1;
     g[j] = mul_rn(c, gj);
     const T r = fabs(g1);                       // clears a -0's sign
     *res = r;
-    *live = (r > *tol) && (j + 1 < m);
+    const bool alive = (r > *tol) && (j + 1 < m);
+    *live = alive;
     *iters += 1;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i <= m; i += kThreads) {
-    H[static_cast<int64_t>(i) * m + j] = i <= j + 1 ? col[i] : T(0);
+    if (set_next) cudaGraphSetConditional(next, alive ? 1u : 0u);
   }
 }
 
 template <typename T>
 int launch(int device, const void* h, const void* hn, int j, int m, void* H,
            void* cs, void* sn, void* g, void* res, const void* tol,
-           void* live, void* iters, double tiny, void* stream) {
+           void* live, void* iters, double tiny, unsigned long long next,
+           int set_next, void* stream) {
   if (device < 0 || device >= kMaxDevices || m < 1 || m > kMaxRestart ||
       j < 0 || j >= m) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -138,13 +171,14 @@ int launch(int device, const void* h, const void* hn, int j, int m, void* H,
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  givens_column_kernel<T><<<1, kThreads, 0,
+  givens_column_kernel<T><<<1, kWarp, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(h), static_cast<const T*>(hn), j, m,
       static_cast<T*>(H), static_cast<T*>(cs), static_cast<T*>(sn),
       static_cast<T*>(g), static_cast<T*>(res), static_cast<const T*>(tol),
       static_cast<bool*>(live), static_cast<int*>(iters),
-      static_cast<T>(tiny));
+      static_cast<T>(tiny), static_cast<cudaGraphConditionalHandle>(next),
+      set_next);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,17 +191,19 @@ extern "C" {
 int fvens_givens_column_f32(int device, const void* h, const void* hn, int j,
                             int m, void* H, void* cs, void* sn, void* g,
                             void* res, const void* tol, void* live,
-                            void* iters, double tiny, void* stream) {
+                            void* iters, double tiny, unsigned long long next,
+                            int set_next, void* stream) {
   return launch<float>(device, h, hn, j, m, H, cs, sn, g, res, tol, live,
-                       iters, tiny, stream);
+                       iters, tiny, next, set_next, stream);
 }
 
 int fvens_givens_column_f64(int device, const void* h, const void* hn, int j,
                             int m, void* H, void* cs, void* sn, void* g,
                             void* res, const void* tol, void* live,
-                            void* iters, double tiny, void* stream) {
+                            void* iters, double tiny, unsigned long long next,
+                            int set_next, void* stream) {
   return launch<double>(device, h, hn, j, m, H, cs, sn, g, res, tol, live,
-                        iters, tiny, stream);
+                        iters, tiny, next, set_next, stream);
 }
 
 const char* fvens_givens_error_string(int err) {

@@ -213,10 +213,19 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
     comes from reduced scalars (the residual norm, `ok` by allreduce_min,
     the Krylov iterations of a GMRES whose every decision is reduced), so
     all ranks take the same path, as the JAX package's shards do.
+
+    `pipeline` and `bake_mesh` are accepted, as the JAX package accepts
+    them, and run the host loop: the rank's step reads its reduced scalars
+    on the host, so neither has anything to overlap or capture, and the
+    trajectory is the one the JAX package's pipelined or baked distributed
+    solve takes by design (the same step, the same controller arithmetic).
+    A device form, the step's reductions inside a captured graph, is not
+    written yet. `device_steps` > 1 is refused, as there.
     """
     flow: ShardedFlow = None
 
     log_label = "dBE"
+    device_resident = False
 
     def __post_init__(self):
         if self.lin.pc in ("bline", "amg"):
@@ -228,13 +237,9 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
                 "optionally banded, matrix-free, warm_start or deflation_k")
         if self.cfg.device_steps > 1:
             raise NotImplementedError(
-                "device-side chunked stepping (device_steps > 1) has no "
-                "distributed form")
-        if self.cfg.pipeline or self.cfg.bake_mesh:
-            raise NotImplementedError(
-                "pipelined stepping and baked (captured) steps have no "
-                "distributed form yet: a rank's step reads its allreduced "
-                "scalars on the host (ROADMAP queue 1, item 14)")
+                "device-side chunked stepping (device_steps>1) is "
+                "single-chip only; the distributed step is already one "
+                "device program per pseudo-time step")
 
     def _banded(self, mesh):
         """This rank's part of the partitioned band analysis

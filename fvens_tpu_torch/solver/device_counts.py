@@ -20,8 +20,11 @@ import contextlib
 
 import torch
 
+# "graph_if" counts the IF nodes reached (live or dead), "set_if" the
+# set-condition kernels of generic nodes, "cond_set" the compare-and-set
+# kernel's launches (solver/graph_if.py)
 NAMES = ("banded_apply", "bsgs_apply", "row_set", "givens_column",
-         "graph_if")
+         "graph_if", "set_if", "cond_set")
 
 _COUNTS = {}               # device index: int64 tensor (len(NAMES),)
 _KEPT = {}                 # every counter made, counting or not

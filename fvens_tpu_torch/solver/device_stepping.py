@@ -16,16 +16,17 @@ as device tensors, so that nothing is read back inside it.
   - StepProgram: the device-form step on one (mesh, dtype). On the card it
     is captured once as a torch.cuda.CUDAGraph (each Krylov iteration, the
     blocked path's second pass and each restart cycle inside a CUDA-graph
-    IF node: graph_if.GraphControl) and replayed per call, its inputs copied
+    IF node: graph_if.GraphControl; the iterations in groups, each decided
+    by the Givens update before it) and replayed per call, its inputs copied
     into static buffers first; elsewhere it runs eagerly, every branch
     computed and selected (linear.EAGER). It is bake_mesh's step and
     pipeline's.
   - ChunkProgram: K steps of the controller (controller_advance on device
     scalars through TorchXP) and the device-form step, each step inside an
-    IF node on flag == 0, with the JAX package's per-step flags (1
-    converged, 2 non-finite or blowup, 3 four frozen residuals) and best
-    state, writing each step's (res, cfl, flag, iterations) into a device
-    buffer that the host reads once per chunk.
+    IF node on flag == 0 (the compare-and-set kernel), with the JAX
+    package's per-step flags (1 converged, 2 non-finite or blowup, 3 four
+    frozen residuals) and best state, writing each step's (res, cfl, flag,
+    iterations) into a device buffer that the host reads once per chunk.
   - pipeline_burst: the twin of the JAX package's _pipeline_burst: the
     controller and step k+1 are queued before step k's scalars are read
     (two steps in flight), the anomaly and convergence checks run one step
@@ -51,7 +52,7 @@ import time
 import torch
 
 from . import device_counts
-from .graph_if import GraphControl
+from .graph_if import ZERO, GraphControl
 from .linear import EAGER, _sel
 
 
@@ -262,8 +263,8 @@ class ChunkProgram:
 
     def _bodies(self, ctl):
         for i in range(self.K):
-            ctl.run_if(self.b["flag"] == 0, lambda pred, i=i:
-                       self._body(i, ctl, pred))
+            ctl.run_if_cmp(ZERO, self.b["flag"], None, lambda pred, i=i:
+                           self._body(i, ctl, pred))
         return ()
 
     def _body(self, i, ctl, pred):

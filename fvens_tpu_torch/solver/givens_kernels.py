@@ -10,14 +10,19 @@ port's host-controlled gmres does the same arithmetic on the host in NumPy
 (solver/linear.py:gmres_device) launches this kernel once per Krylov
 iteration instead, so that a captured step graph reads nothing back.
 
-`givens_column(h, hn, j, H, cs, sn, g, res, tol, live, iters)` updates, in
-place and only where `live` is true, the Krylov state of iteration j of a
-cycle of m = cs.shape[0]:
+`givens_column(h, hn, j, H, cs, sn, g, res, tol, live, iters, next_cond)`
+updates, in place and only where `live` is true, the Krylov state of
+iteration j of a cycle of m = cs.shape[0]:
 
   - applies the j stored rotations (cs, sn) to the new column (h[0..j],
     hn), forms rotation j and stores it, updates g;
   - res = |g[j+1]|, live = live and res > tol and j + 1 < m, iters += 1;
-  - H[:, j] = the rotated column (zeros below row j + 1).
+  - H[:, j] = the rotated column (zeros below row j + 1);
+  - inside a captured graph, sets the condition of `next_cond` (a
+    graph_if.Handle: the IF node of the next Krylov iteration, or of the
+    next group of them) to the new live; that is how the captured cycle's
+    iterations chain (graph_if.NodeControl.run_chain). Off a capture it is
+    None.
 
 h, hn, H, cs, sn, g, res and tol share the Krylov dtype (f32 or f64), live
 is a one-element torch.bool tensor and iters a one-element int32 tensor,
@@ -29,8 +34,9 @@ NumPy's scalar ** 2 (pow) rounds one of the two squares off the product
 that the kernel, the twin and the JAX package's XLA form (about one square
 in 1,500): there the results differ in the last bits.
 
-`givens_column` launches the kernel for CUDA tensors and raises if the
-launch fails; for CPU tensors it takes `givens_plain`.
+`givens_column` launches the kernel (one warp) for CUDA tensors and raises
+if the launch fails; for CPU tensors it takes `givens_plain`, which sets
+next_cond's `cond` where the kernel sets the node's condition.
 `givens_column.launches` counts kernel launches (a launch inside a CUDA
 graph is counted once, when it is captured).
 """
@@ -46,7 +52,7 @@ from .._build import CSRC_DIR, build_cuda_library
 from . import device_counts
 
 TINY = 1e-300              # the clamp of the denominator; rounds to 0 at f32
-MAX_RESTART = 512          # the kernel's shared-memory column
+MAX_RESTART = 512          # the kernel's limit on the restart
 
 _LIB = None                # (ctypes.CDLL, BuildInfo), built at first use
 _FNS = {}                  # dtype: the kernel's C entry point
@@ -64,7 +70,8 @@ def load_library():
             fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_int, ctypes.c_int]
                            + [ctypes.c_void_p] * 8
-                           + [ctypes.c_double, ctypes.c_void_p])
+                           + [ctypes.c_double, ctypes.c_ulonglong,
+                              ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _FNS[dtype] = fn
         lib.fvens_givens_error_string.argtypes = [ctypes.c_int]
@@ -73,10 +80,12 @@ def load_library():
     return _LIB[1]
 
 
-def givens_plain(h, hn, j: int, H, cs, sn, g, res, tol, live, iters):
+def givens_plain(h, hn, j: int, H, cs, sn, g, res, tol, live, iters,
+                 next_cond=None):
     """Plain PyTorch twin of the kernel, the same recurrence one operation
     at a time, every write selected by `live` (a dead call changes
-    nothing)."""
+    nothing; where live is false the kernel does not run, so it sets no
+    condition)."""
     m = cs.shape[0]
     alive = live.reshape(()).clone()
     col = list(torch.cat([h[:j + 1], hn.reshape(1)]).unbind())
@@ -103,9 +112,11 @@ def givens_plain(h, hn, j: int, H, cs, sn, g, res, tol, live, iters):
     put(g, j, c * gj)
     put(H, (slice(None), j), newcol)
     res.copy_(torch.where(alive, r, res.reshape(())).reshape(res.shape))
-    live.copy_((alive & (r > tol.reshape(())) & (j + 1 < m))
-               .reshape(live.shape))
+    new_live = alive & (r > tol.reshape(())) & (j + 1 < m)
+    live.copy_(new_live.reshape(live.shape))
     iters.add_(alive.to(iters.dtype).reshape(iters.shape))
+    if next_cond is not None and bool(alive):
+        next_cond.set_plain(new_live, "givens_column")
 
 
 def _check(h, hn, j, H, cs, sn, g, res, tol, live, iters):
@@ -140,14 +151,16 @@ def _check(h, hn, j, H, cs, sn, g, res, tol, live, iters):
         raise ValueError("givens_column's tensors must be contiguous")
 
 
-def givens_column(h, hn, j: int, H, cs, sn, g, res, tol, live, iters):
-    """Iteration j's rotation update of the Krylov state, in place: the CUDA
+def givens_column(h, hn, j: int, H, cs, sn, g, res, tol, live, iters,
+                  next_cond=None):
+    """Iteration j's rotation update of the Krylov state, in place (and the
+    condition of the next node, `next_cond`, inside a capture): the CUDA
     kernel on CUDA tensors, its plain twin on CPU tensors."""
     _check(h, hn, j, H, cs, sn, g, res, tol, live, iters)
     if not H.is_cuda:
         if H.device.type == "cpu":
             return givens_plain(h, hn, j, H, cs, sn, g, res, tol, live,
-                                iters)
+                                iters, next_cond)
         raise ValueError(f"givens_column runs on cuda or cpu, not "
                          f"{H.device}")
     if _LIB is None:
@@ -157,6 +170,8 @@ def givens_column(h, hn, j: int, H, cs, sn, g, res, tol, live, iters):
                         H.data_ptr(), cs.data_ptr(), sn.data_ptr(),
                         g.data_ptr(), res.data_ptr(), tol.data_ptr(),
                         live.data_ptr(), iters.data_ptr(), TINY,
+                        0 if next_cond is None else next_cond.value,
+                        next_cond is not None,
                         torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         msg = _LIB[0].fvens_givens_error_string(err).decode()

@@ -21,7 +21,9 @@ gmres_device is gmres with its control on the device, the counterpart of
 the JAX package's while-loop FGMRES: the same two paths, the Givens work by
 the CUDA kernel of solver/givens_kernels.py, and each iteration, second
 pass and restart guarded by a device predicate (computed and selected
-eagerly, or an IF node of a captured CUDA graph). The device-resident
+eagerly, or an IF node of a captured CUDA graph, decided by the
+compare-and-set kernel of solver/graph_if.py or, from one Krylov
+iteration to the next, by the Givens update). The device-resident
 stepping options run it (solver/device_stepping.py).
 """
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from .givens_kernels import givens_column
+from .graph_if import GREATER, LESS, cond_set
 from .rowset_kernels import row_set
 
 
@@ -550,13 +553,27 @@ class EagerControl:
     """gmres_device's control flow run eagerly: every iteration, every
     restart cycle and the blocked path's second pass are computed and their
     writes selected by their condition (torch.where), so nothing is read
-    back; a dead iteration costs what a live one does. Inside a CUDA-graph
-    capture, solver/graph_if.py:GraphControl takes its place."""
+    back; a dead iteration costs what a live one does. The conditions come
+    from the compare-and-set kernel (graph_if.cond_set, its twin on the
+    CPU), as in a graph. Inside a CUDA-graph capture,
+    solver/graph_if.py:GraphControl takes its place."""
     masked = True
 
     @staticmethod
     def run_if(pred, body):
         body(pred)
+
+    @staticmethod
+    def run_if_cmp(op, a, b, body, scale=1.0, out=None):
+        body(cond_set(op, a, b, scale, out=out))
+
+    @staticmethod
+    def run_chain(n, op, a, b, live, body, pred=None):
+        cond_set(op, a, b, out=live)
+        if pred is not None:
+            live.logical_and_(pred)
+        for j in range(n):
+            body(j, None, live)
 
 
 EAGER = EagerControl()
@@ -609,7 +626,9 @@ def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
         blocked path's second pass under wn1 < 0.7 wn0, a cycle after the
         first under res > tol, through `ctl`: EAGER computes every branch
         and selects its writes, a graph_if.GraphControl captures each into
-        an IF node of a CUDA graph;
+        an IF node of a CUDA graph (the iterations a chain whose next node
+        the Givens update decides, in groups; the other decisions by the
+        compare-and-set kernel);
       - the least-squares solve runs over all `restart` columns with the
         unused ones made identity and their g zero, so y is 0 past the
         cycle's iterations and x += Z^T y (blocked: pc(V^T y)) reads the
@@ -649,7 +668,7 @@ def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
             cycle(None)
         else:
             # converged restarts skip the whole cycle
-            ctl.run_if(ws.res > tol, cycle)
+            ctl.run_if_cmp(GREATER, ws.res, tol, cycle)
     return (ws.x.clone().reshape(shape), ws.iters.clone(),
             ws.res / torch.clamp_min(bnorm, 1e-300))
 
@@ -667,11 +686,11 @@ def _device_cycle(ws, mv, pcf, bf, m, tol, ctl, blocked, pred):
     ws.V[0] = r / torch.clamp_min(beta, 1e-300)
     ws.g[0] = beta
     ws.res.copy_(_sel(pred, beta, ws.res))
-    live = beta > tol
-    ws.live.copy_(live if pred is None else live & pred)
     step = _blocked_iteration if blocked else _classic_iteration
-    for j in range(m):
-        ctl.run_if(ws.live, functools.partial(step, ws, mv, pcf, j, tol, ctl))
+    # live = beta > tol decides the first iteration, each Givens update the
+    # next
+    ctl.run_chain(m, GREATER, beta, tol, ws.live,
+                  functools.partial(step, ws, mv, pcf, tol, ctl), pred)
 
     jc = ws.iters - it0
     used = torch.arange(m, device=x.device) < jc
@@ -686,9 +705,10 @@ def _device_cycle(ws, mv, pcf, bf, m, tol, ctl, blocked, pred):
     x.copy_(torch.where(jc > 0, upd, x))
 
 
-def _classic_iteration(ws, mv, pcf, j, tol, ctl, pred):
+def _classic_iteration(ws, mv, pcf, tol, ctl, j, nxt, pred):
     """Iteration j of the classic path: gmres's CGS2 over the j+1 filled
-    rows, then the Givens kernel."""
+    rows, then the Givens kernel (which decides `nxt`, the next iteration's
+    node)."""
     V = ws.V
     z = pcf(V[j])
     w = mv(z)
@@ -702,20 +722,21 @@ def _classic_iteration(ws, mv, pcf, j, tol, ctl, pred):
     V[j + 1] = _sel(pred, w / torch.clamp_min(hn, 1e-300), V[j + 1])
     ws.Z[j] = _sel(pred, z, ws.Z[j])
     givens_column(h, hn, j, ws.H, ws.cs, ws.sn, ws.g, ws.res, tol, ws.live,
-                  ws.iters)
+                  ws.iters, next_cond=nxt)
 
 
-def _blocked_iteration(ws, mv, pcf, j, tol, ctl, pred):
+def _blocked_iteration(ws, mv, pcf, tol, ctl, j, nxt, pred):
     """Iteration j of the blocked path: one blocked-MGS pass, the second
-    under wn1 < 0.7 wn0 (a nested conditional), the row_set append and the
-    Givens kernel."""
+    under wn1 < 0.7 wn0 (a nested conditional: the compare-and-set kernel
+    decides it at the Krylov dtype, as gmres does), the row_set append and
+    the Givens kernel (which decides `nxt`, the next iteration's node)."""
     V = ws.V
     w = mv(pcf(V[j]))
     wn0 = _norm2(w)
     h, w = _mgs_pass(V, w, j + 1)
     hn = _norm2(w)
-    again = hn < 0.7 * wn0          # at the Krylov dtype, as gmres decides
     if ctl.masked:
+        again = cond_set(LESS, hn, wn0, 0.7)
         h2, w2 = _mgs_pass(V, w, j + 1)
         h = torch.where(again, h + h2, h)
         w = torch.where(again, w2, w)
@@ -728,10 +749,10 @@ def _blocked_iteration(ws, mv, pcf, j, tol, ctl, pred):
             h.add_(h2)
             w.copy_(w2)
             hn.copy_(_norm2(w2))
-        ctl.run_if(again, second_pass)
+        ctl.run_if_cmp(LESS, hn, wn0, second_pass, scale=0.7)
         row_set(V, j + 1, w, hn)
     givens_column(h[:j + 1], hn, j, ws.H, ws.cs, ws.sn, ws.g, ws.res, tol,
-                  ws.live, ws.iters)
+                  ws.live, ws.iters, next_cond=nxt)
 
 
 def _cholqr(A, k: int, ar):

@@ -324,6 +324,9 @@ class SteadyBackwardEuler:
     functional_fn: Optional[object] = None
     functional_every: int = 0
     log_label = "BE"      # class attr (not a field): logger prefix
+    # class attr: whether the device-resident options run the device-form
+    # step (a solver whose step reads back inside runs the host loop)
+    device_resident = True
 
     def _cached(self, name, mesh, build):
         """A host-built per-mesh structure, cached on the solver."""
@@ -746,12 +749,15 @@ class SteadyBackwardEuler:
         # the device-resident modes, on the JAX package's conditions: K
         # steps a chunk with the exp ramp and no deflation; pipelined
         # bursts on the classic exp-ramp path, not with bake_mesh; the baked
-        # (captured) step on the classic path. Elsewhere the host loop.
+        # (captured) step on the classic path. Elsewhere, and where the
+        # step reads back inside (device_resident off), the host loop.
         K = max(1, int(cfg.device_steps))
-        chunk_on = K > 1 and cfg.cfl_ramp == "exp" and not defl
-        pipe_on = (cfg.pipeline and not chunk_on and not warm and not defl
-                   and cfg.cfl_ramp == "exp" and not cfg.bake_mesh)
-        bake_on = cfg.bake_mesh and not warm and not defl
+        on = self.device_resident
+        chunk_on = on and K > 1 and cfg.cfl_ramp == "exp" and not defl
+        pipe_on = (on and cfg.pipeline and not chunk_on and not warm
+                   and not defl and cfg.cfl_ramp == "exp"
+                   and not cfg.bake_mesh)
+        bake_on = on and cfg.bake_mesh and not warm and not defl
         single_left = 1         # the first step runs singly (sets initres);
         #                         recoveries also force a few single steps
         du_c = torch.zeros_like(u)      # the chunk-carried direction

@@ -23,7 +23,8 @@ The port's rerun with the same --checkpoint resumes from it. A missing mesh
 exits 1; --pipeline runs step for step with the JAX CLI's --pipeline;
 --devices 2 --device cpu (two gloo ranks) runs what the JAX CLI's
 --devices 2 runs (DistributedFlowCase.run_output on two virtual CPU
-devices); unsteady and explicit control files print what the JAX CLI
+devices), with --pipeline too (and the port's distributed case with
+bake_mesh); unsteady and explicit control files print what the JAX CLI
 prints; the CLI module imports with jax blocked. Also:
 the perftest breakdown and the torch twin of __graft_entry__.entry().
 """
@@ -215,7 +216,8 @@ def test_cli_needs_the_card_unless_told(runs, capsys):
 
 
 @pytest.mark.parametrize("refusal", ["unsteady", "devices", "pipeline",
-                                     "explicit", "devices_functionals_every"])
+                                     "explicit", "devices_functionals_every",
+                                     "devices_pipeline"])
 def test_cli_refuses_unported_paths(runs, refusal):
     """--pipeline, --devices, unsteady and explicit control files, each
     refused until its path was ported, now run and print what the JAX CLI
@@ -242,7 +244,15 @@ def test_cli_refuses_unported_paths(runs, refusal):
       - --devices 2 with --functionals_every 5 added to both CLIs (the JAX
         CLI accepts the pair and its distributed case never reads the
         flag): both run and give what --devices 2 gives, to the same
-        tolerances, and the port prints its notice exactly once."""
+        tolerances, and the port prints its notice exactly once;
+      - --devices 2 with --pipeline added to both CLIs (the JAX CLI's
+        distributed solve pipelines its steps, the port's runs its host
+        loop: the same trajectory by design) held as --devices 2 is, the
+        port printing its notice exactly once; beside it the port's
+        DistributedFlowCase of the same files with bake_mesh on two gloo
+        ranks (tests/torch_dist_ranks.py:cli_case) held to the same JAX
+        run: the starter's Krylov iterations step for step, the first
+        AGREE main steps, the totals and the functionals as above."""
     tmp, msh = runs["tmp"], runs["msh"]
     argv = ["--mesh_file", msh, "--log_every", "1"]
     if refusal == "pipeline":
@@ -278,6 +288,8 @@ def test_cli_refuses_unported_paths(runs, refusal):
         ctrl = _ctrl(tmp)
         if refusal == "devices_functionals_every":
             argv += ["--functionals_every", "5"]
+        if refusal == "devices_pipeline":
+            argv += ["--pipeline"]
         argv += ["-options_file", SOLVERC, "--devices", "2", "--history"]
         hist = {k: os.path.join(tmp, f"{refusal}_{k}.jsonl")
                 for k in ("jax", "port")}
@@ -292,22 +304,50 @@ def test_cli_refuses_unported_paths(runs, refusal):
         assert "2 ranks (gloo)" in proc.stdout
         assert proc.stdout.count(cli.FUNCTIONALS_EVERY_NOTICE) == (
             refusal == "devices_functionals_every")
+        assert proc.stdout.count(cli.PIPELINE_NOTICE) == (
+            refusal == "devices_pipeline")
         j, t = parse_cli_output(jtext), parse_cli_output(proc.stdout)
         starter = re.compile(r"^\s*dBE \|\s+\d+ \|[^|]+\|[^|]+\|\s+(\d+) \|",
                              re.M)
-        assert starter.findall(proc.stdout) == starter.findall(jtext) != []
+        js = starter.findall(jtext)
         jr, tr = _jsonl(hist["jax"]), _jsonl(hist["port"])
         first = jr[0]["absres"]
-        for a, b in zip(tr[:AGREE], jr[:AGREE]):
-            assert a["lin_iters"] == b["lin_iters"], a["step"]
-            assert abs(a["absres"] - b["absres"]) \
-                <= 1e-9 * b["absres"] + 1e-12 * first, a["step"]
-        for key in ("main_steps", "main_iters"):
-            assert abs(t[key] - j[key]) <= 0.1 * j[key], key
+        want = [r["lin_iters"] for r in jr[:AGREE]]
+        runs = [t]
+        if refusal == "devices_pipeline":
+            # the JAX CLI logs no Krylov iterations inside a burst (0):
+            # there the port's distributed case with bake_mesh (its host
+            # loop) stands in, itself held to the JAX run as the CLI is
+            import torch_dist_ranks as R
+            from fvens_tpu_torch.dist import launch
+            b = launch.run(R.cli_case, 2, args=(ctrl, msh, SOLVERC,
+                                                dict(bake_mesh=True)),
+                           device="cpu", threads=1, timeout=600,
+                           join_timeout=600)[0]
+            bs = [str(n) for n in b["starter_iters"]]
+            assert len(bs) == len(js) and all(
+                q in ("0", a) for a, q in zip(bs, js)), (bs, js)
+            bi = [h[4] for h in b["history"][:AGREE]]
+            assert all(q in (0, a) for a, q in zip(bi, want)), (bi, want)
+            js, want = bs, bi
+            for a, q in zip(b["history"][:AGREE], jr[:AGREE]):
+                assert a[0] == q["step"], a[0]
+                assert abs(a[2] - q["absres"]) \
+                    <= 1e-9 * q["absres"] + 1e-12 * first, a[0]
+            runs.append(dict(b["functionals"], main_steps=b["main_steps"],
+                             main_iters=b["main_iters"]))
+        assert starter.findall(proc.stdout) == js != []
+        for a, q, w in zip(tr[:AGREE], jr[:AGREE], want):
+            assert a["lin_iters"] == w, a["step"]
+            assert abs(a["absres"] - q["absres"]) \
+                <= 1e-9 * q["absres"] + 1e-12 * first, a["step"]
         assert (t["main_steps"], t["main_iters"]) == (
             len(tr), sum(r["lin_iters"] for r in tr))
-        for k in FUNCTIONALS:
-            assert abs(t[k] - j[k]) <= max(1e-8 * abs(j[k]), 1e-12), k
+        for run in runs:
+            for key in ("main_steps", "main_iters"):
+                assert abs(run[key] - j[key]) <= 0.1 * j[key], key
+            for k in FUNCTIONALS:
+                assert abs(run[k] - j[k]) <= max(1e-8 * abs(j[k]), 1e-12), k
         return
     argv[-1] = "0"
     if refusal == "unsteady":

@@ -1,9 +1,11 @@
 """The CUDA kernels (banded_apply, the fused bsgs apply, row_set,
-givens_column) against their plain PyTorch twins, on the card. The banded
-kernels at both block sizes they are built for: the flow equations' 4x4
-blocks and the scalar diffusion's 1x1 blocks (the `_v1` tests, on the heat
-equation's operators and on random ones). The Givens kernel bit for bit;
-the device-form step captured as a CUDA graph with IF nodes
+givens_column, the compare-and-set kernel) against their plain PyTorch
+twins, on the card. The banded kernels at both block sizes they are built
+for: the flow equations' 4x4 blocks and the scalar diffusion's 1x1 blocks
+(the `_v1` tests, on the heat equation's operators and on random ones).
+The Givens kernel and the compare-and-set kernel bit for bit; a captured
+chain of Givens updates that decide each other's IF nodes; the
+device-form step captured as a CUDA graph with IF nodes
 (solver/device_stepping.py) equal to the eager one bit for bit, with its
 launches counted on the card.
 
@@ -625,7 +627,9 @@ def test_captured_step_equals_the_eager_device_step(cuda, blocked,
     eager (masked) device step's state, residual and Krylov iterations bit
     for bit, at two CFLs through the same graph; the device counters count
     one launch of each kernel per live Krylov iteration (plus the cycle's
-    residual matvec and, blocked, its trailing preconditioner apply)."""
+    residual matvec and, blocked, its trailing preconditioner apply), one
+    compare-and-set launch per cycle and, blocked, per iteration, and no
+    set-condition kernel."""
     from fvens_tpu_torch.solver import device_counts, linear
     from fvens_tpu_torch.solver.device_stepping import StepProgram
     if blocked:
@@ -647,6 +651,11 @@ def test_captured_step_equals_the_eager_device_step(cuda, blocked,
                 assert torch.equal(a, b), cfl
             its = int(got[2])
             assert its > 0 and n["givens_column"] == its
+            # the chain needs no set-condition kernel; the compare-and-set
+            # kernel decides the first iteration and, blocked, each second
+            # pass
+            assert n["set_if"] == 0
+            assert n["cond_set"] == 1 + (its if blocked else 0)
             assert n["banded_apply"] == its + 1
             assert n["bsgs_apply"] == its + (1 if blocked else 0)
             assert n["row_set"] == (its if blocked else 0)
@@ -677,3 +686,47 @@ def test_if_node_cycle_counts_what_the_masked_cycle_counts(cuda, blocked):
     assert int(out[1]) == ite > 10
     assert float(out[2]) == re
     assert torch.equal(out[0], xe)
+
+
+# ---------------------------------------------------------------------------
+# the compare-and-set kernel and the Krylov chain of IF nodes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cond_set_equals_its_twin_bit_for_bit(cuda, dtype):
+    """a < 0.7 b, a > b and a == 0 on values that straddle the product's
+    rounding, zeros, infinities and NaNs: the kernel's bool equals the
+    twin's and torch's own expression's; int32 flags against zero."""
+    from chip_smoke import straddling
+    from fvens_tpu_torch.solver.graph_if import (GREATER, LESS, ZERO,
+                                                 cond_plain, cond_set)
+    tdt = getattr(torch, dtype)
+    out = torch.empty((), dtype=torch.bool, device=cuda)
+    n0 = cond_set.launches
+    pairs = straddling(np.random.default_rng(3), dtype)
+    for a, b in pairs:
+        ta = torch.tensor(a, dtype=tdt, device=cuda)
+        tb = torch.tensor(b, dtype=tdt, device=cuda)
+        for op, scale, want in ((LESS, 0.7, ta < 0.7 * tb),
+                                (GREATER, 1.0, ta > tb), (ZERO, 1.0, ta == 0)):
+            cond_set(op, ta, tb, scale, out=out)
+            assert bool(out) == bool(cond_plain(op, ta, tb, scale)) \
+                == bool(want), (op, a, b)
+    assert cond_set.launches == n0 + 3 * len(pairs)
+    for f in (0, 1, -1, 3):
+        assert bool(cond_set(ZERO, torch.tensor(f, dtype=torch.int32,
+                                                device=cuda))) == (f == 0)
+
+
+def test_krylov_chain_runs_exactly_its_live_iterations(cuda):
+    """chip_smoke's I5 chain check: a captured chain of 90 Givens updates
+    in groups, stopped part way by its tolerance, runs exactly its live
+    bodies, equals the twin bit for bit and reaches the nodes
+    chip_smoke.chain_nodes counts (SmokeFailure otherwise)."""
+    from chip_smoke import chain_checks, chain_nodes
+    from fvens_tpu_torch.solver import givens_kernels as gk
+    gk.load_library()
+    rec = chain_checks(cuda)
+    assert 1 < rec["live"] < rec["iterations"]
+    assert rec["nodes_reached"] == chain_nodes(rec["live"],
+                                               rec["iterations"], 8)

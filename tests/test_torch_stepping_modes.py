@@ -18,7 +18,8 @@ Besides: a blowup injected mid-burst and mid-chunk (the speculative step
 in flight is discarded, the recovery history is the single-step loop's),
 the controller
 on device scalars (TorchXP) against its NumPy evaluation, and the
-distributed solver's refusals.
+distributed solver's device_steps refusal and its pipeline and bake_mesh,
+which run its host loop (equal to it on two gloo ranks).
 """
 
 import numpy as np
@@ -203,13 +204,34 @@ def test_controller_on_device_scalars_matches_numpy(seed):
             assert float(a) == pytest.approx(float(b), rel=4e-16, abs=0)
 
 
-def test_distributed_solver_refuses_the_device_modes():
+@pytest.fixture(scope="module")
+def dist_modes():
+    """torch_dist_ranks.mode_histories on two gloo ranks."""
+    import torch_dist_ranks as R
+    from fvens_tpu_torch.dist import launch
+    return launch.run(R.mode_histories, 2, device="cpu", threads=1,
+                      timeout=60, join_timeout=300)[0]
+
+
+@pytest.mark.parametrize("mode", ["device_steps", "pipeline", "bake_mesh"])
+def test_distributed_solver_refuses_the_device_modes(mode, request):
+    """device_steps > 1 is refused, with the JAX package's wording;
+    pipeline and bake_mesh are accepted, as the JAX package accepts them,
+    and run the host loop: on two gloo ranks the first 20 steps of the
+    distributed main solve (banded bsgs x6 on cylinder_omesh(32, 12))
+    equal the host loop's, step for step and bit for bit."""
+    from torch_dist_ranks import HISTORY_STEPS
+
     from fvens_tpu_torch.dist.shard import DistributedBackwardEuler
-    for pt, what in ((dict(device_steps=4), "device_steps"),
-                     (dict(pipeline=True), "pipelined"),
-                     (dict(bake_mesh=True), "pipelined stepping and baked")):
-        with pytest.raises(NotImplementedError, match=what):
-            _solver(DistributedBackwardEuler, **pt)
+    if mode == "device_steps":
+        with pytest.raises(NotImplementedError, match="device_steps>1"):
+            _solver(DistributedBackwardEuler, device_steps=4)
+        return
+    assert not _solver(DistributedBackwardEuler,
+                       **{mode: True}).device_resident
+    h = request.getfixturevalue("dist_modes")
+    assert len(h["host"]) == HISTORY_STEPS
+    assert h[mode] == h["host"]
 
 
 def test_modes_fall_back_to_the_host_loop_where_the_jax_package_does():
@@ -227,3 +249,20 @@ def test_modes_fall_back_to_the_host_loop_where_the_jax_package_does():
         s.solve(cm, u0, max_steps=6)
         assert not s.__dict__.get("_programs")
     assert steady.ChunkProgram and steady.StepProgram
+
+
+def test_pipelined_step_script_needs_the_card():
+    """cases/pipelined_step.py, which times the pipelined 640x320 cylinder
+    of a checkout on the card, exits 1 where torch sees none."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the script would run on it")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "fvens_tpu_torch", "cases",
+                                      "pipelined_step.py"), "--tree", root],
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA device" in proc.stderr

@@ -209,6 +209,52 @@ def history(comm, mesh=(32, 12)) -> list:
     return info.history
 
 
+def mode_histories(comm, mesh=(32, 12)) -> dict:
+    """history()'s distributed solve under the host loop and with pipeline
+    and bake_mesh set (the distributed solver accepts both and runs its
+    host loop): {mode: the first HISTORY_STEPS accepted steps}."""
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    cfg = history_case()
+    md = cylinder_omesh(*mesh, stretch=1.15 ** (20.0 / mesh[1]))
+    flow = ShardedFlow(build_space(cfg), partition_mesh(md, BCS, comm.size),
+                       comm)
+    out = {}
+    for mode, pt in (("host", {}), ("pipeline", dict(pipeline=True)),
+                     ("bake_mesh", dict(bake_mesh=True))):
+        _, info = flow.solve_implicit(
+            dataclasses.replace(cfg.main, **pt), lin=cfg.linear,
+            nl=cfg.nl_update, max_steps=HISTORY_STEPS)
+        out[mode] = info.history
+    return out
+
+
+def cli_case(comm, ctrl, msh, solverc, pt) -> dict:
+    """The case a --devices run of the CLI solves (cases/cli.py: `ctrl`
+    on `msh` with the options file `solverc`, f64), with the
+    PseudoTimeConfig fields `pt` set on the starter and the main solve: on
+    rank 0 the starter's Krylov iterations per step, the main solve's
+    history, steps, Krylov iterations and functionals (None elsewhere)."""
+    from fvens_tpu_torch.cases.casesolvers import DistributedFlowCase
+    from fvens_tpu_torch.io_config import parse_control_file
+    from fvens_tpu_torch.io_config.solverc import load_solver_options
+    from fvens_tpu_torch.mesh.reader import read_mesh
+    cfg = parse_control_file(ctrl, mesh_file=msh)
+    lin, _, _ = load_solver_options(solverc, base=cfg.linear,
+                                    warn=lambda m: None)
+    cfg = dataclasses.replace(
+        cfg, linear=lin, main=dataclasses.replace(cfg.main, **pt),
+        init=dataclasses.replace(cfg.init, **pt))
+    case = DistributedFlowCase(cfg, comm.size, device="cpu")
+    _, info, fnls = case.rank_run_output(comm, read_mesh(msh))
+    if comm.rank != 0:
+        return None
+    return dict(starter_iters=[h[4] for h in case.starter_info.history],
+                history=info.history, main_steps=info.steps,
+                main_iters=info.total_lin_iters,
+                functionals=dict(entropy=fnls.entropy, CL=fnls.CL,
+                                 CDp=fnls.CDp, CDsf=fnls.CDsf))
+
+
 def case_config(wall=(2,)):
     """The cylinder case (cases/bigmesh_case.py: banded bsgs x6, mixed
     precision, starter then main to 1e-10) with its wall marker."""
