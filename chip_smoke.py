@@ -253,8 +253,8 @@ limit.
  22. H: precision scheduling and the distributed dry run. H1, the banded
      640x320 cylinder with two_phase = TWO_PHASE_GATE
      (bigmesh_case.run_solve: phase A the whole case in f32 to the
-     absolute gate, phase B in f64 from phase A's last CFL), a warm-up
-     and a timed solve: converged to 1e-10, finite, the entropy error
+     absolute gate, phase B in f64 from phase A's last CFL), one timed
+     solve: converged to 1e-10, finite, the entropy error
      within the record's limit of step 4's single-phase solve's; per
      phase of the timed solve row_set once per Krylov iteration, the fused
      K1b at least once and K1 at least once and fewer than twice per
@@ -306,6 +306,35 @@ limit.
      busy share. I3, the three modes at STEPPING_CHECK_MESH against
      JAX_BIGMESH_RECORD (pipeline) and JAX_STEPPING_RECORD; I4, the CLI
      with --pipeline at CHECK_MESH against JAX_CLI_RECORD.
+
+ 24. J: the distributed step as one device program (dist/shard.py:
+     DistributedBackwardEuler._device_step, gmres_device over reduced
+     inner products). J1, in G1's world on the same NCCL rank after G1's
+     host-loop solve: the 640x320 banded cylinder through
+     DistributedFlowCase with pipeline set on the starter and the main
+     solve (as the CLI's --pipeline sets it), each rank's step one CUDA
+     graph with its collectives captured, against G1's host loop: the
+     same starter steps, the first DIST_AGREE_STEPS main residuals within
+     JAX_DIST_RECORD's agree_res (1%; the trajectories part at f32
+     rounding), the main steps within 10%, the functionals to
+     1e-8 (CL to JAX_DIST_RECORD's cl_abs), counted on the card K1, the
+     fused K1b and the Givens kernel at least once per Krylov iteration of
+     its device-form steps, IF nodes reached and no row_set; ms per starter
+     and main step, capture seconds and IF nodes per step beside G1's host
+     loop and the one-device pipelined step. J1b: bake_mesh for
+     J_BAKED_STEPS main steps from J1's starter state, its Krylov
+     iterations J1's and its residuals to J_BAKED_REL relative; the baked
+     step's graph captured once more and its nodes read through the
+     CUDA's libcuda (by type, at the top and inside the IF nodes' bodies,
+     each body noted as its capture begins, and the NCCL kernels among
+     them); whether an allreduce runs under no_host_sync. J2, in G2's D = 2 world (gloo ranks sharing
+     the card: the host-staged route): J_STAGED_STEPS device-form steps
+     (EAGER: the Givens and compare-and-set kernels on reduced columns)
+     from G1's starter state against as many _step's, chained: the same
+     Krylov iterations, the residuals to J_STAGED_REL relative; the
+     solver not device_resident, and two solves with pipeline set on one
+     flow printing STAGED_NOTICE once. J's seconds are taken out of G1's
+     and G2/G3's phases and listed as their own.
 
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
@@ -2390,6 +2419,23 @@ DIST_AGREE_STEPS = 10            # G1: main steps held to 1e-8 relative
 DIST_PARTS = (2, 4)              # G2, G3: ranks sharing cuda:0 over gloo
 DIST_STEPS = 3                   # G2: main steps from G1's starter state
 DIST_CLI_MESH = CHECK_MESH       # G1's CLI pair (--devices 1, a resume)
+# Phase J: the distributed step as one device program (J1 in G1's world,
+# J2 in G2's D = 2 world)
+# J1b: its residuals against J1's. Not bit for bit: the device form's
+# f32 Krylov update is a product over the restart's 90 columns
+# (linear.gmres_device), and a pipelined solve's first main step is the
+# host form, so the two part at f32 rounding (the CPU rehearsal at 48x24,
+# D = 2: up to 1.5e-6 over 10 steps). J1's first main residuals against
+# G1's host loop, whose starter ran the host form too, are held to
+# JAX_DIST_RECORD's agree_res, the limit of the other comparisons of two
+# mixed-precision distributed trajectories (G3)
+J_BAKED_STEPS = 10               # J1b: baked main steps from J1's starter
+J_BAKED_REL = 1e-5
+J_STAGED_STEPS = 3               # J2: device-form steps on the staged route
+J_STAGED_REL = 1e-6              # J2: their residuals against _step's
+# phase I1's pipelined one-device main step, ms (PERF.md section 5: an
+# H100 80GB HBM3 at 700 W)
+ONE_DEVICE_PIPELINED_MS = 51.3
 DIST_CHECK_MESH = (160, 80)      # G3: held to JAX_DIST_RECORD's runs of
 DIST_CHECK_PARTITION = "blocks"  # contiguous index blocks to convergence;
 #   the record's "bfs" runs (partition_mesh's own) wander for 346-423 main
@@ -2462,14 +2508,19 @@ def g1_rank(comm, cfg, md):
     split = dict(case.times, gather_functionals_s=wall - sum(
         case.times.values()))
     kernels = part_kernels(comm, cfg, case.flow, case.starter_u)
-    return dict(route=comm.route, wall_s=wall, split=split,
-                allreduce_us=allreduce_us(comm), launches=launches,
-                kernels=kernels,
-                starter_steps=st.steps, starter_iters=st.total_lin_iters,
-                history=info.history, main_steps=info.steps,
-                main_iters=info.total_lin_iters, converged=info.converged,
-                functionals=None if fnls is None else fnl_dict(fnls),
-                starter=case.flow.gather_solution(case.starter_u))
+    out = dict(route=comm.route, wall_s=wall, split=split,
+               allreduce_us=allreduce_us(comm), launches=launches,
+               kernels=kernels,
+               starter_steps=st.steps, starter_iters=st.total_lin_iters,
+               history=info.history, main_steps=info.steps,
+               main_iters=info.total_lin_iters, converged=info.converged,
+               functionals=None if fnls is None else fnl_dict(fnls),
+               starter=case.flow.gather_solution(case.starter_u))
+    del case
+    t0 = time.perf_counter()
+    out["j1"] = j1_rank(comm, cfg, md)
+    out["j1"]["j_s"] = time.perf_counter() - t0
+    return out
 
 
 def dist_one_rank(dev):
@@ -2561,7 +2612,8 @@ def dist_one_rank(dev):
     check(kern["fused"] and kern["matvec"]["ok"] and kern["bsgs"]["ok"],
           f"G1: K1 or the fused K1b on the part's operators differs from "
           f"its twin: {kern}")
-    return starter, launches, parity_ref
+    j1 = j1_checks(got.pop("j1"), got, hist)
+    return starter, launches, parity_ref, j1
 
 
 def dist_cli(ref: dict):
@@ -2816,6 +2868,10 @@ def g23_rank(comm, cfg, md, starter, md_check, part_check, bfs_steps,
                s_per_step=wall / max(info.steps, 1),
                residuals=[h[2] for h in info.history],
                finite=bool(torch.isfinite(un).all()))
+    if comm.size == 2:
+        t0 = time.perf_counter()
+        out["j2"] = j2_rank(comm, cfg, flow, u)
+        out["j2"]["j_s"] = time.perf_counter() - t0
     del flow, be, u, un
     case = DistributedFlowCase(cfg, comm.size)
     t0 = time.perf_counter()
@@ -2888,6 +2944,7 @@ def dist_shared_card(dev, starter, parity_ref) -> dict:
     with ThreadPoolExecutor(len(DIST_PARTS)) as ex:
         jobs = {D: ex.submit(run_world, D) for D in DIST_PARTS}
         worlds = {D: job.result() for D, job in jobs.items()}
+    paths["j2"] = j2_checks(worlds[2][0])
     for D in DIST_PARTS:
         ranks, world_s = worlds[D]
         bfs_steps = lim["agree_steps"] if D in DIST_BFS_PARTS else None
@@ -2992,6 +3049,362 @@ def dist_shared_card(dev, starter, parity_ref) -> dict:
                   f"G3 D={D} bfs main step {step}: iterations {h[4]} vs "
                   f"{its}, residual {h[2]!r} vs {res!r}")
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase J: the distributed step as one device program (dist/shard.py:
+# DistributedBackwardEuler._device_step, pipelined, baked, and on the
+# host-staged route)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counted_solves(dev, marks: list):
+    """Inside: each ShardedFlow.solve_implicit appends to `marks` the
+    launches counted on the card across it (solver/device_counts must be
+    on) and its SolveInfo."""
+    import torch
+    from fvens_tpu_torch.dist.shard import ShardedFlow
+    from fvens_tpu_torch.solver.steady import ToleranceError
+    saved = ShardedFlow.solve_implicit
+
+    def run(self, *a, **k):
+        torch.cuda.synchronize()
+        n0 = device_launches(dev)
+
+        def mark(info):
+            torch.cuda.synchronize()
+            n1 = device_launches(dev)
+            marks.append(({key: n1[key] - n0[key] for key in n1}, info))
+        try:
+            out = saved(self, *a, **k)
+        except ToleranceError as e:
+            mark(e.info)
+            raise
+        mark(out[1])
+        return out
+    ShardedFlow.solve_implicit = run
+    try:
+        yield
+    finally:
+        ShardedFlow.solve_implicit = saved
+
+
+# CUgraphNodeType (cuda.h) by value
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+                    "wait_event", "event_record", "ext_semas_signal",
+                    "ext_semas_wait", "mem_alloc", "mem_free",
+                    "batch_mem_op", "conditional")
+
+
+def graph_nodes(graph: int, bodies: list) -> dict:
+    """The nodes of a captured CUDA graph (a cudaGraph_t handle) and of the
+    body graphs of its IF nodes (`bodies`, as captured: this libcuda has no
+    getter for a conditional node's bodies), read through libcuda's calls:
+    counts by node type at the top level and inside the bodies, and the
+    kernel nodes whose function name is NCCL's at each."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUresult {err}")
+
+    def name_of(node):
+        prm = (ctypes.c_byte * 72)()          # CUDA_KERNEL_NODE_PARAMS_v2
+        ok(cu.cuGraphKernelNodeGetParams_v2(vp(node), prm),
+           "cuGraphKernelNodeGetParams_v2")
+        func = ctypes.c_void_p.from_buffer(prm, 0).value
+        kern = ctypes.c_void_p.from_buffer(prm, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), vp(func)), "cuFuncGetName")
+        elif kern:
+            ok(cu.cuKernelGetName(ctypes.byref(name), vp(kern)),
+               "cuKernelGetName")
+        return (name.value or b"").decode()
+
+    out = {"top": {}, "in_if_bodies": {}, "nccl_kernels": {},
+           "if_bodies": len(bodies)}
+
+    def walk(g, level):
+        n = ctypes.c_size_t(0)
+        ok(cu.cuGraphGetNodes(vp(g), None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (vp * n.value)()
+        ok(cu.cuGraphGetNodes(vp(g), nodes, ctypes.byref(n)),
+           "cuGraphGetNodes")
+        for node in nodes:
+            t = ctypes.c_int()
+            ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(t)),
+               "cuGraphNodeGetType")
+            kind = (GRAPH_NODE_TYPES[t.value] if t.value
+                    < len(GRAPH_NODE_TYPES) else str(t.value))
+            out[level][kind] = out[level].get(kind, 0) + 1
+            if kind == "kernel" and "nccl" in name_of(node).lower():
+                out["nccl_kernels"][level] = \
+                    out["nccl_kernels"].get(level, 0) + 1
+            elif kind == "graph":
+                child = vp()
+                ok(cu.cuGraphChildGraphNodeGetGraph(vp(node),
+                                                    ctypes.byref(child)),
+                   "cuGraphChildGraphNodeGetGraph")
+                walk(child.value, level)
+    walk(graph, "top")
+    for body in bodies:
+        walk(body, "in_if_bodies")
+    return out
+
+
+def captured_nodes(dev, program) -> dict:
+    """The body of `program` (a StepProgram that has run: its workspace
+    and caches exist) captured once more into a CUDA graph that keeps its
+    cudaGraph_t, as the program captures it (IF nodes, or masked), each IF
+    node's body graph noted as its capture begins (cuStreamGetCaptureInfo
+    on the body stream); their nodes read by graph_nodes."""
+    import ctypes
+    import torch
+    from fvens_tpu_torch.solver.graph_if import GraphControl
+    from fvens_tpu_torch.solver.linear import EAGER
+    cu = ctypes.CDLL("libcuda.so.1")
+    bodies = []
+
+    class Noting(GraphControl):
+        def _body(self, begin, body):
+            def noted(arg):
+                status, graph = ctypes.c_int(), ctypes.c_void_p()
+                err = cu.cuStreamGetCaptureInfo_v2(
+                    ctypes.c_void_p(torch.cuda.current_stream(
+                        self.device).cuda_stream), ctypes.byref(status),
+                    None, ctypes.byref(graph), None, None)
+                if err != 0:
+                    raise RuntimeError(f"cuStreamGetCaptureInfo_v2: CUresult "
+                                       f"{err}")
+                bodies.append(graph.value)
+                body(arg)
+            super()._body(begin, noted)
+
+    ctl = EAGER if program.program.masked else Noting(dev)
+    pool = torch.cuda.MemPool()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.use_mem_pool(pool, dev):
+                program._body(ctl)
+        return graph_nodes(graph.raw_cuda_graph(), bodies)
+    except (RuntimeError, OSError, AttributeError, TypeError) as e:
+        return {"error": str(e)[:300]}
+
+
+def j1_rank(comm, cfg, md) -> dict:
+    """J1 and J1b on G1's rank. J1: DistributedFlowCase with pipeline set
+    on the starter and the main solve, the launches counted on the card
+    across each solve; J1b: bake_mesh for J_BAKED_STEPS main steps from
+    J1's starter state, then its step's graph read (captured_nodes) and an
+    allreduce run under no_host_sync."""
+    import dataclasses
+    import torch
+    from fvens_tpu_torch.cases.casesolvers import DistributedFlowCase
+    from fvens_tpu_torch.dist.comm import allreduce_sum
+    from fvens_tpu_torch.dist.shard import DistributedBackwardEuler
+    from fvens_tpu_torch.solver import device_counts
+    from fvens_tpu_torch.solver.device_stepping import no_host_sync
+    dev = comm.device
+    pipe = dataclasses.replace(
+        cfg, main=dataclasses.replace(cfg.main, pipeline=True),
+        init=dataclasses.replace(cfg.init, pipeline=True))
+    case = DistributedFlowCase(pipe, comm.size)
+    marks = []
+    torch.cuda.synchronize()
+    device_counts.enable(dev)
+    try:
+        t0 = time.perf_counter()
+        with counted_solves(dev, marks):
+            _, info, fnls = case.rank_run_output(comm, md)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = device_launches(dev)
+    finally:
+        device_counts.disable()
+    st = case.starter_info
+    (n_st, _), (n_main, _) = marks
+    out = dict(route=comm.route, wall_s=wall, split=dict(case.times),
+               launches=launches,
+               per_step=dict(starter=per_step(n_st, st),
+                             main=per_step(n_main, info)),
+               starter_steps=st.steps, starter_iters=st.total_lin_iters,
+               starter_capture_s=st.capture_s, main_capture_s=info.capture_s,
+               device_iters=st.device_lin_iters + info.device_lin_iters,
+               discarded_iters=(st.discarded_lin_iters
+                                + info.discarded_lin_iters),
+               history=info.history, main_steps=info.steps,
+               main_iters=info.total_lin_iters, converged=info.converged,
+               functionals=None if fnls is None else fnl_dict(fnls),
+               halo_rounds=len(case.flow.exch.rounds))
+    flow = case.flow
+    be = DistributedBackwardEuler(
+        space=flow.space, cfg=dataclasses.replace(cfg.main, bake_mesh=True),
+        lin=cfg.linear, nl=cfg.nl_update, flow=flow)
+    torch.cuda.synchronize()
+    device_counts.enable(dev)
+    try:
+        t0 = time.perf_counter()
+        _, binfo = be.solve(flow.dist_mesh(), case.starter_u,
+                            max_steps=J_BAKED_STEPS)
+        torch.cuda.synchronize()
+        out.update(baked_wall_s=time.perf_counter() - t0,
+                   baked_launches=device_launches(dev),
+                   baked_history=binfo.history,
+                   baked_capture_s=binfo.capture_s,
+                   baked_resident=be.device_resident)
+    finally:
+        device_counts.disable()
+    out["graph"] = captured_nodes(dev, next(iter(be._programs[1].values())))
+    try:
+        with no_host_sync(dev):
+            allreduce_sum(comm, torch.ones(91, device=dev))
+        out["allreduce_in_no_host_sync"] = "ran"
+    except RuntimeError as e:
+        out["allreduce_in_no_host_sync"] = f"raised: {e}"[:300]
+    return out
+
+
+def j1_checks(j: dict, g1: dict, g1_hist: list) -> dict:
+    """J1 and J1b's line and checks against G1's host-loop run (`g1`, its
+    main history `g1_hist`). Returns J1's report with its ms per step."""
+    lim = _load(JAX_DIST_RECORD)["limits"]
+    hist = j.pop("history")
+    bhist = j.pop("baked_history")
+    sp = j["split"]
+
+    def ms(wall, n):
+        return 1e3 * wall / n if n else None
+    g1_main_ms = ms(g1["split"]["main_s"], g1["main_steps"])
+    rep = dict(
+        j, residuals=[h[2] for h in hist],
+        ms_per_starter_step=ms(sp["starter_s"], j["starter_steps"]),
+        ms_per_main_step=ms(sp["main_s"], j["main_steps"]),
+        ms_per_main_step_net_of_capture=ms(sp["main_s"] - j["main_capture_s"],
+                                           j["main_steps"]),
+        g1_host_loop_ms_per_main_step=g1_main_ms,
+        g1_host_loop_ms_per_starter_step=ms(g1["split"]["starter_s"],
+                                            g1["starter_steps"]),
+        one_device_pipelined_ms_per_main_step_pr13=ONE_DEVICE_PIPELINED_MS,
+        agree_rel=[abs(a[2] - b[2]) / b[2] for a, b in
+                   zip(hist[:DIST_AGREE_STEPS], g1_hist)],
+        baked=dict(steps=len(bhist), wall_s=j["baked_wall_s"],
+                   capture_s=j["baked_capture_s"],
+                   iters=[h[4] for h in bhist],
+                   rel=[abs(a[2] - b[2]) / b[2] for a, b in zip(bhist,
+                                                                 hist)]))
+    card_line(f"J1 cylinder {DIST_MESH[0]}x{DIST_MESH[1]} banded, D=1, "
+              f"{j['route']}, pipeline", rep)
+    check(j["converged"], "J1: the pipelined distributed solve did not "
+          "converge")
+    check(j["starter_steps"] == g1["starter_steps"],
+          f"J1: starter {j['starter_steps']} steps, G1's host loop "
+          f"{g1['starter_steps']}")
+    for a, b in zip(hist[:DIST_AGREE_STEPS], g1_hist):
+        check(abs(a[2] - b[2]) <= lim["agree_res"] * b[2],
+              f"J1 main step {a[0]}: residual {a[2]!r} vs G1's {b[2]!r}")
+    check(abs(j["main_steps"] - g1["main_steps"]) <= 0.1 * g1["main_steps"],
+          f"J1: {j['main_steps']} main steps vs G1's {g1['main_steps']}")
+    check(same_functionals(j["functionals"], g1["functionals"], 1e-8,
+                           lim["cl_abs"]),
+          f"J1 functionals {j['functionals']} vs G1's {g1['functionals']}")
+    la, dits = j["launches"], j["device_iters"] + j["discarded_iters"]
+    check(dits > 0 and la["banded_apply"] >= dits
+          and la["banded_bsgs"] >= dits and la["givens_column"] >= dits
+          and la["graph_if"] > 0 and la["row_set"] == 0
+          and la["set_if"] == 0,
+          f"J1: launches {la} for {dits} Krylov iterations of device-form "
+          "steps")
+    check(j["baked_resident"] and len(bhist) == J_BAKED_STEPS,
+          f"J1b: {len(bhist)} baked steps, device_resident "
+          f"{j['baked_resident']}")
+    for a, b in zip(bhist, hist):
+        check(a[4] == b[4] and abs(a[2] - b[2]) <= J_BAKED_REL * b[2],
+              f"J1b main step {a[0]}: {a[4]} Krylov iterations, residual "
+              f"{a[2]!r}; J1's {b[4]}, {b[2]!r}")
+    bla = j["baked_launches"]
+    bits = sum(h[4] for h in bhist)
+    check(bla["givens_column"] == bits and bla["graph_if"] > 0,
+          f"J1b: launches {bla} for {bits} Krylov iterations")
+    return rep
+
+
+def j2_rank(comm, cfg, flow, u) -> dict:
+    """J2 on a rank of G2's D = 2 world (gloo ranks sharing the card: the
+    host-staged route): J_STAGED_STEPS steps of _step and of _device_step
+    (EAGER control, the Givens and compare-and-set kernels on the card)
+    from `u`, each form chained from its own state at the main solve's
+    first CFL and rtol, with the host launch counts of the device-form
+    steps; then two solves with pipeline set on one flow, one step each,
+    their standard output read for STAGED_NOTICE."""
+    import dataclasses
+    import io
+    import torch
+    from fvens_tpu_torch.dist.shard import (STAGED_NOTICE,
+                                            DistributedBackwardEuler)
+    be = DistributedBackwardEuler(space=flow.space, cfg=cfg.main,
+                                  lin=cfg.linear, nl=cfg.nl_update, flow=flow)
+    dm = flow.dist_mesh()
+    lm, bl = dm.to(torch.float32), be._banded(dm)
+    cfl, rtol = cfg.main.cfl_init, cfg.linear.rtol
+    f = lambda x: torch.tensor(x, dtype=torch.float64, device=comm.device)
+    host, dev_rows = [], []
+    uh = ud = u
+    t0 = time.perf_counter()
+    for _ in range(J_STAGED_STEPS):
+        uh, res, its = be._step(dm, uh, cfl, rtol, lmesh=lm, bl=bl)
+        host.append((res, its))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    zero_counts()
+    for _ in range(J_STAGED_STEPS):
+        ud, res, its, _ = be._device_step(dm, ud, f(cfl), f(rtol), f(1.0),
+                                          lmesh=lm, bl=bl)
+        dev_rows.append((float(res), int(its)))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counts()
+    buf = io.StringIO()
+    pipe = dataclasses.replace(cfg.main, pipeline=True)
+    with contextlib.redirect_stdout(buf):
+        for _ in range(2):
+            flow.solve_implicit(pipe, lin=cfg.linear, nl=cfg.nl_update, u=u,
+                                max_steps=1)
+    return dict(rank=comm.rank, route=comm.route,
+                host=host, device=dev_rows, host_s=t1 - t0,
+                device_s=t2 - t1, launches=launches,
+                resident=be.device_resident, restart=cfg.linear.restart,
+                notices=buf.getvalue().count(STAGED_NOTICE))
+
+
+def j2_checks(ranks: list) -> dict:
+    """J2's line and checks on the ranks' reports. Returns J2's launches
+    (summed over the ranks) and its seconds (rank 0's)."""
+    r0 = ranks[0]["j2"]
+    launches = {k: sum(r["j2"]["launches"][k] for r in ranks)
+                for k in r0["launches"]}
+    card_line(f"J2 cylinder {DIST_MESH[0]}x{DIST_MESH[1]} banded, D=2 on one "
+              f"card, {r0['route']}, {J_STAGED_STEPS} device-form steps",
+              dict(r0, launches=launches))
+    check(r0["route"] == "gloo, host-staged" and not r0["resident"],
+          f"J2: route {r0['route']}, device_resident {r0['resident']}")
+    for k, ((rh, ih), (rd, idv)) in enumerate(zip(r0["host"], r0["device"])):
+        check(idv == ih and abs(rd - rh) <= J_STAGED_REL * rh,
+              f"J2 step {k + 1}: device form {idv} Krylov iterations, "
+              f"residual {rd!r}; _step {ih}, {rh!r}")
+    for r in ranks:
+        la = r["j2"]["launches"]
+        check(la["givens_column"] == J_STAGED_STEPS * r0["restart"]
+              and la["cond_set"] >= J_STAGED_STEPS,
+              f"J2 rank {r['rank']}: launches {la} for {J_STAGED_STEPS} "
+              f"eager steps of FGMRES({r0['restart']})")
+    check([r["j2"]["notices"] for r in ranks] == [1, 0],
+          f"J2: the staged route's notice printed "
+          f"{[r['j2']['notices'] for r in ranks]} times by rank")
+    return dict(launches=launches, j_s=r0["j_s"])
 
 
 def history_rows(info) -> list:
@@ -3133,9 +3546,9 @@ def phase_a_solvers(dev):
 
 def two_phase_path(dev, single: dict) -> dict:
     """H1: the banded 640x320 cylinder precision scheduled
-    (bigmesh_case.run_solve(two_phase=TWO_PHASE_GATE)), a warm-up solve
-    then the timed one, counted from just before the warm-up to just
-    after the timed solve. The timed solve must converge to 1e-10 with a
+    (bigmesh_case.run_solve(two_phase=TWO_PHASE_GATE)), one timed solve
+    (no warm-up, to keep the phases within their time),
+    counted from just before to just after it. It must converge to 1e-10 with a
     finite state and an entropy error within the record's limit of the
     single-phase solve's (`single`, phase 4's report of the same build);
     per phase of the timed solve, row_set once per Krylov iteration of
@@ -3151,13 +3564,14 @@ def two_phase_path(dev, single: dict) -> dict:
     zero_counts()
     marks = []
     with two_phase_marks(marks):
-        u, rep = bigmesh_case.run_solve(dev, two_phase=TWO_PHASE_GATE)
+        u, rep = bigmesh_case.run_solve(dev, two_phase=TWO_PHASE_GATE,
+                                        warmup=False)
     torch.cuda.synchronize()
     launches = read_counts()
-    check(len(marks) == 6, f"H1: {len(marks)} phase marks, not 6")
+    check(len(marks) == 3, f"H1: {len(marks)} phase marks, not 3")
     pa, pb = rep["phase_a"], rep["phase_b"]
-    per_phase = {"A": count_diff(marks[3], marks[4]),
-                 "B": count_diff(marks[4], marks[5])}
+    per_phase = {"A": count_diff(marks[0], marks[1]),
+                 "B": count_diff(marks[1], marks[2])}
     its = {"A": pa["starter_krylov_iters"] + pa["main_krylov_iters"],
            "B": pb["krylov_iters"]}
 
@@ -3313,7 +3727,7 @@ def precision_phases(dev, paths: dict, single: dict):
     import torch
     torch.cuda.empty_cache()
     with phase(f"H1: cylinder 640x320 banded, two-phase gate "
-               f"{TWO_PHASE_GATE:g} (warm-up + timed)"):
+               f"{TWO_PHASE_GATE:g} (one timed solve)"):
         paths["H1 cylinder 640x320 banded, two-phase"] = two_phase_path(
             dev, single)
     ni, nj = TWO_PHASE_CHECK_MESH
@@ -3326,27 +3740,52 @@ def precision_phases(dev, paths: dict, single: dict):
             paths.update(h2.result())
 
 
-def dist_phases(dev, paths: dict, cli_functionals: dict):
+def move_phase(src: str, dst: str, seconds: float):
+    """Take `seconds` out of phase `src` and list them as phase `dst`."""
+    PHASES[src] -= seconds
+    PHASES[dst] = seconds
+    print(f"phase {dst}: {seconds:.2f} s (within {src})", flush=True)
+
+
+def dist_phases(dev, paths: dict, cli_functionals: dict) -> dict:
     """Phase G: G1 (beside it, in this process, its one-device solve and
     G2's one-device forms), then G2 and G3 with G1's CLI pair beside them
-    (its subprocesses run while the worlds do). `cli_functionals`: the
-    one-device CLI's at DIST_CLI_MESH."""
+    (its subprocesses run while the worlds do); phase J inside G1's and
+    G2's D = 2 worlds. `cli_functionals`: the one-device CLI's at
+    DIST_CLI_MESH. Returns J1's report."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
     torch.cuda.empty_cache()
     mesh = f"cylinder {DIST_MESH[0]}x{DIST_MESH[1]}"
-    with phase(f"G1: {mesh} banded, DistributedFlowCase on one NCCL rank "
-               "vs the one-device classic-GMRES solve"):
-        starter, launches, parity_ref = dist_one_rank(dev)
+    g1 = (f"G1: {mesh} banded, DistributedFlowCase on one NCCL rank vs the "
+          "one-device classic-GMRES solve")
+    with phase(g1):
+        starter, launches, parity_ref, j1 = dist_one_rank(dev)
         paths[f"G1 {mesh} banded, D=1, nccl"] = launches
+        paths[f"J1 {mesh} banded, D=1, nccl, pipeline"] = j1["launches"]
+        paths[f"J1b {mesh} banded, D=1, nccl, bake_mesh, {J_BAKED_STEPS} "
+              "main steps"] = j1["baked_launches"]
+    move_phase(g1, f"J1/J1b: {mesh} pipelined and baked on G1's NCCL rank",
+               j1["j_s"])
     ni, nj = DIST_CLI_MESH
-    with phase(f"G2/G3: D={DIST_PARTS} on cuda:0, gloo host-staged; beside "
-               f"them G1's cli --devices 1 {ni}x{nj} + resume"):
+    g2 = (f"G2/G3: D={DIST_PARTS} on cuda:0, gloo host-staged; beside them "
+          f"G1's cli --devices 1 {ni}x{nj} + resume")
+    with phase(g2):
         with ThreadPoolExecutor(1) as ex:
             cli = ex.submit(dist_cli, cli_functionals)
-            paths.update(dist_shared_card(dev, starter, parity_ref))
+            shared = dist_shared_card(dev, starter, parity_ref)
             cli.result()
+    j2 = shared.pop("j2")
+    paths.update(shared)
+    paths[f"J2 {mesh} banded, D=2 on one card, gloo, host-staged, "
+          f"{J_STAGED_STEPS} device-form steps"] = j2["launches"]
+    move_phase(g2, f"J2: {mesh} device-form steps on G2's D=2 world "
+               "(host-staged)", j2["j_s"])
+    print("phase J", json.dumps(dict(
+        seconds=j1["j_s"] + j2["j_s"], j1_j1b_s=j1["j_s"], j2_s=j2["j_s"],
+        card=CARD)), flush=True)
+    return j1
 
 
 # ---------------------------------------------------------------------------
@@ -4093,7 +4532,8 @@ def stepping_phases(dev, paths: dict, single: dict) -> dict:
     print("I summary", json.dumps(dict(modes=reports, card=CARD)),
           flush=True)
     return dict(givens=grows, graph_if=ifrec, cond_set=condrec,
-                launches=paths["I cylinder 640x320 banded, pipeline"])
+                launches=paths["I cylinder 640x320 banded, pipeline"],
+                i1=reports["pipeline"])
 
 
 def main() -> int:
@@ -4185,9 +4625,17 @@ def main() -> int:
     with phase(f"E: {heat}, gather and banded"):
         paths[heat], paths[f"{heat} banded"] = heat_path(dev)
     options_phases(dev, paths, gather_rep)
-    dist_phases(dev, paths, cli_check)
+    j1 = dist_phases(dev, paths, cli_check)
     precision_phases(dev, paths, single_rep)
     stepping = stepping_phases(dev, paths, single_rep)
+    print("J1 beside I1", json.dumps(dict(
+        j1_ms_per_main_step=j1["ms_per_main_step"],
+        j1_ms_per_main_step_net_of_capture=j1[
+            "ms_per_main_step_net_of_capture"],
+        g1_host_loop_ms_per_main_step=j1["g1_host_loop_ms_per_main_step"],
+        i1_ms_per_main_step=stepping["i1"]["ms_per_main_step"],
+        i1_ms_per_main_step_net_of_capture=stepping["i1"][
+            "ms_per_main_step_net_of_capture"], card=CARD)), flush=True)
 
     def main_row(rows, **want):
         return next(r for r in rows if r["dtype"] == "float32"

@@ -219,7 +219,7 @@ class DistributedFlowCase:
         self.starter_info = self.starter_u = None
         if cfg.use_starter and cfg.numerics.order2:
             sf1 = ShardedFlow(build_space(cfg, order2=False), bundle, comm,
-                              self.dtype)
+                              self.dtype, said=flow.said)
             try:
                 u, self.starter_info = sf1.solve_implicit(
                     cfg.init, lin=cfg.linear, nl=cfg.nl_update, u=u,

@@ -29,10 +29,11 @@ once, on the gathered state, and rank 0 says so once.
 `--pipeline` sets PseudoTimeConfig.pipeline on the starter and the main
 solve, as the JAX CLI does: each implicit solve then queues step k+1 before
 it reads step k's residual (solver/device_stepping.py), on the CPU too.
-With `--devices` it is accepted, as the JAX CLI accepts it, and has no
-effect: a rank's step reads its reduced scalars on the host, so the
-distributed solve runs its host loop, the trajectory the JAX package's
-pipelined distributed solve takes (dist/shard.py), and rank 0 says so once.
+With `--devices` each rank pipelines the device form of the distributed
+step (dist/shard.py), as the JAX package's distributed solve pipelines its
+step program: captured with its NCCL collectives on the card, eager over
+gloo on the CPU (the CLI never shares a card between ranks, the one route
+where the host loop would run).
 """
 
 from __future__ import annotations
@@ -100,11 +101,6 @@ DEVICES_TIMEOUT = 1800.0
 FUNCTIONALS_EVERY_NOTICE = (
     "fvens_tpu_torch: --functionals_every has no effect with --devices: the "
     "functionals are evaluated once, on the gathered state")
-# and when --pipeline is set
-PIPELINE_NOTICE = (
-    "fvens_tpu_torch: --pipeline has no effect with --devices: a rank's "
-    "step reads its reduced scalars on the host, so the distributed solve "
-    "runs its host loop (the same trajectory)")
 
 
 def main(argv=None) -> int:
@@ -180,8 +176,6 @@ def _run(args, comm=None) -> int:
         cfg = dataclasses.replace(
             cfg, main=dataclasses.replace(cfg.main, pipeline=True),
             init=dataclasses.replace(cfg.init, pipeline=True))
-        if comm is not None:
-            say(PIPELINE_NOTICE)
     dtype = torch.float32 if args.f32 else torch.float64
 
     if not os.path.exists(cfg.mesh_file):

@@ -27,8 +27,8 @@ import torch
 
 from ..solver import jacobian as jacmod
 from ..solver.banded import banded_structure_parts
-from ..solver.linear import (gmres, gmres_dr, make_bsr_matvec,
-                             make_preconditioner)
+from ..solver.linear import (EAGER, gmres, gmres_device, gmres_dr,
+                             make_bsr_matvec, make_preconditioner)
 from ..solver.relaxation import get_update_scheme
 from ..solver.steady import SteadyBackwardEuler
 from .comm import (Comm, Exchange, all_gather_rows, allreduce_min,
@@ -45,6 +45,8 @@ class ShardedFlow:
     bundle: ShardedMeshBundle
     comm: Comm
     dtype: torch.dtype = torch.float64
+    # the notices rank 0 has printed (shared by the flows of one case)
+    said: set = dataclasses.field(default_factory=set, repr=False)
 
     def __post_init__(self):
         self.mesh, maps = self.bundle.part(self.comm.rank, self.comm.device,
@@ -129,6 +131,12 @@ class ShardedFlow:
         ok = allreduce_min(comm, ok.to(torch.int32).reshape(1))
         return unew, float(res) if int(ok) else float("nan"), iters
 
+    def say_once(self, notice: str):
+        """Print `notice` on rank 0, once per set of flows sharing `said`."""
+        if self.comm.rank == 0 and notice not in self.said:
+            self.said.add(notice)
+            print(notice, flush=True)
+
     def initial_state(self):
         """The free stream on every local slot."""
         return self.space.uinf(self.dtype, self.comm.device).repeat(
@@ -194,6 +202,14 @@ class DistMesh:
         return DistMesh(self.mesh.to(dtype), self.exch)
 
 
+# what rank 0 of a solve with pipeline or bake_mesh prints once on the
+# host-staged route
+STAGED_NOTICE = (
+    "fvens_tpu_torch: pipeline and bake_mesh run the host loop on the "
+    "gloo, host-staged route (ranks sharing a card): a message passes "
+    "through host memory, so the step cannot stay on the card")
+
+
 @dataclasses.dataclass
 class DistributedBackwardEuler(SteadyBackwardEuler):
     """The distributed implicit solver, reusing SteadyBackwardEuler's host
@@ -214,18 +230,28 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
     the Krylov iterations of a GMRES whose every decision is reduced), so
     all ranks take the same path, as the JAX package's shards do.
 
-    `pipeline` and `bake_mesh` are accepted, as the JAX package accepts
-    them, and run the host loop: the rank's step reads its reduced scalars
-    on the host, so neither has anything to overlap or capture, and the
-    trajectory is the one the JAX package's pipelined or baked distributed
-    solve takes by design (the same step, the same controller arithmetic).
-    A device form, the step's reductions inside a captured graph, is not
-    written yet. `device_steps` > 1 is refused, as there.
+    `pipeline` and `bake_mesh` run the device form of the step
+    (_device_step: gmres_device over reduced inner products, nothing read
+    back), the counterpart of the JAX package's one shard_map program per
+    step, through the inherited device_stepping programs, as the JAX
+    package's inherited solve() pipelines and bakes that program:
+      - over NCCL each rank's step is one CUDA graph, its collectives
+        captured with it: on one rank inside the Krylov iterations' IF
+        nodes, over two or more with the guarded parts captured masked
+        (_masked_capture: every iteration runs, its writes selected), the
+        collectives at the graph's top level; every decision comes from
+        reduced values, so every rank replays the same work in the same
+        order, and a speculative step is discarded on every rank alike;
+      - over gloo on the CPU it runs eagerly (linear.EAGER), as the
+        one-device modes run on the CPU;
+      - on the host-staged route (gloo ranks sharing a card, Comm.staged)
+        a message passes through host memory, so the host loop runs, and
+        rank 0 says so once (STAGED_NOTICE).
+    `device_steps` > 1 is refused, as there.
     """
     flow: ShardedFlow = None
 
     log_label = "dBE"
-    device_resident = False
 
     def __post_init__(self):
         if self.lin.pc in ("bline", "amg"):
@@ -240,6 +266,32 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
                 "device-side chunked stepping (device_steps>1) is "
                 "single-chip only; the distributed step is already one "
                 "device program per pseudo-time step")
+
+    @property
+    def device_resident(self) -> bool:
+        """Whether pipeline and bake_mesh run the device-form step: on
+        every route where no message passes through host memory."""
+        return not self.flow.comm.staged
+
+    def solve(self, mesh, u0, *args, **kwargs) -> tuple:
+        if (self.cfg.pipeline or self.cfg.bake_mesh) \
+                and not self.device_resident:
+            self.flow.say_once(STAGED_NOTICE)
+        return super().solve(mesh, u0, *args, **kwargs)
+
+    def _masked_capture(self) -> bool:
+        """Over two or more ranks the step is captured masked (every
+        Krylov iteration runs, its writes selected by `live`), its
+        collectives at the graph's top level: with NCCL's kernels inside
+        an IF node's body graph the capture's end crashes on the card
+        (an H100 per rank: PERF.md section 6). One rank keeps the
+        IF nodes: its reductions queue no NCCL kernel."""
+        return self.flow.comm.size > 1
+
+    def _krylov_blocked(self, n: int) -> bool:
+        """A rank's GMRES runs the classic path at any n, as gmres does
+        with an allreduce."""
+        return False
 
     def _banded(self, mesh):
         """This rank's part of the partitioned band analysis
@@ -320,3 +372,44 @@ class DistributedBackwardEuler(SteadyBackwardEuler):
         if return_carry:
             return unew, res, iters, du, U
         return unew, res, iters
+
+    def _device_step(self, dmesh, u, cfl, rtol, omega_cap, lmesh=None,
+                     bl=None, ctl=EAGER, ws=None):
+        """The device form of _step on this rank's slab, the twin of
+        SteadyBackwardEuler._device_step with _step's distributed parts:
+        u halo-exchanged, the operators with the exchange and the sum over
+        the ranks, the Krylov vector exchanged at every matvec,
+        gmres_device with every inner product reduced, the update with the
+        positivity line search, and res = sqrt(the reduced sum), NaN unless
+        `ok` (the residual, state, update and relres finite) holds on every
+        rank (allreduce_min). cfl, rtol and omega_cap are 0-dim tensors on
+        u's device; no warm start (the device modes a distributed solve
+        runs take none). Reads nothing back: returns (unew, res, iters, du)
+        as device tensors, res and iters the same on every rank."""
+        comm = self.flow.comm
+        mesh = dmesh.mesh
+        ex = partial(halo_exchange, dmesh.exch)
+        ar = partial(allreduce_sum, comm)
+        u = ex(u)
+        rhs, lrhs, ops = self.step_operators(
+            mesh, u, cfl, None if lmesh is None else lmesh.mesh, bl,
+            exchange=ex, allreduce=ar)
+        mv, pc = self._linear_operators(ops)
+        mask = mesh.cell_mask[:, None].to(lrhs.dtype)
+        du, iters, relres = gmres_device(
+            lambda x: mv(ex(x)) * mask, lrhs * mask, torch.zeros_like(lrhs),
+            lambda v: pc(v) * mask, rtol, restart=self.lin.restart,
+            maxiter=self.lin.maxiter, blocked=False,
+            ws=ws or self._workspace(u), ctl=ctl, allreduce=ar)
+        du = du.to(u.dtype)
+        omega = self._update_factor(u, du, omega_cap)
+        unew = u + omega[:, None] * du * mesh.cell_mask[:, None]
+
+        loc = ((rhs[:, -1] ** 2) * mesh.area * mesh.cell_mask).sum()
+        ok = (torch.isfinite(rhs).all() & torch.isfinite(unew).all()
+              & torch.isfinite(du).all() & torch.isfinite(relres))
+        ok = allreduce_min(comm, ok.to(torch.int32).reshape(1))
+        res = torch.where(ok.reshape(()) > 0, torch.sqrt(ar(loc)),
+                          torch.full((), float("nan"), dtype=rhs.dtype,
+                                     device=rhs.device))
+        return unew, res, iters, du

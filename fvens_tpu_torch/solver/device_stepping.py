@@ -11,7 +11,12 @@ program is the device-form step, SteadyBackwardEuler._device_step: the
 step with the device-controlled gmres (solver/linear.py:gmres_device) and
 the NaN poisoning on the device, taking cfl, rtol and omega_cap as device
 scalars and returning the residual, the Krylov iterations and the update
-as device tensors, so that nothing is read back inside it.
+as device tensors, so that nothing is read back inside it. On a rank of a
+distributed solve it is DistributedBackwardEuler._device_step
+(dist/shard.py), its reductions inside: over NCCL they are captured with
+the step, inside the IF nodes' bodies on one rank; over two or more the
+step is captured masked (no IF nodes: NCCL's kernels may not sit in an IF
+node's body), every Krylov iteration run and selected.
 
   - StepProgram: the device-form step on one (mesh, dtype). On the card it
     is captured once as a torch.cuda.CUDAGraph (each Krylov iteration, the
@@ -130,18 +135,20 @@ def _fill(buf, value):
         buf.fill_(value)
 
 
-def capture_graph(device, body):
+def capture_graph(device, body, masked: bool = False):
     """(graph, memory pool, outputs): `body(ctl)` captured into a new
     torch.cuda.CUDAGraph on `device`, its guarded parts as IF nodes
-    (ctl a graph_if.GraphControl). The capture stream allocates from the
-    graph's own pool; the IF nodes' body streams, which the graph's pool
-    does not see, from a second pool (all this thread's allocations that
-    the first does not take), which lives as long as the caller keeps
-    it."""
+    (ctl a graph_if.GraphControl), or with `masked` as masked branches
+    (ctl linear.EAGER: every branch captured and run, its writes
+    selected; the graph holds no IF node). The capture stream allocates
+    from the graph's own pool; the IF nodes' body streams, which the
+    graph's pool does not see, from a second pool (all this thread's
+    allocations that the first does not take), which lives as long as the
+    caller keeps it."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    ctl = GraphControl(device)
+    ctl = EAGER if masked else GraphControl(device)
     pool = torch.cuda.MemPool()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -155,8 +162,9 @@ class _Captured:
     graph after an eager warm-up on a side stream. `body(ctl)` reads the
     program's input buffers and returns its outputs."""
 
-    def __init__(self, device):
+    def __init__(self, device, masked: bool = False):
         self.device = torch.device(device)
+        self.masked = masked    # capture_graph's: no IF nodes
         self.graph = None
         self.outputs = None
         self.capture_s = 0.0    # the warm-up's and the capture's seconds
@@ -182,7 +190,7 @@ class _Captured:
                     (warm or body)(EAGER)   # builds, caches, workspaces
                 torch.cuda.current_stream(self.device).wait_stream(side)
                 self.graph, self.pool, self.outputs = capture_graph(
-                    self.device, body)
+                    self.device, body, self.masked)
                 torch.cuda.synchronize(self.device)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
@@ -208,7 +216,7 @@ class StepProgram:
             torch.zeros((), dtype=torch.float64, device=dev)
             for _ in range(3))
         self.ws = solver._workspace(u)
-        self.program = _Captured(dev)
+        self.program = _Captured(dev, solver._masked_capture())
 
     def _body(self, ctl):
         s = self.solver
@@ -259,7 +267,7 @@ class ChunkProgram:
         self.one = torch.ones((), dtype=torch.float64, device=dev)
         self.xp = TorchXP(sd, dev)
         self.ws = solver._workspace(u)
-        self.program = _Captured(dev)
+        self.program = _Captured(dev, solver._masked_capture())
 
     def _bodies(self, ctl):
         for i in range(self.K):

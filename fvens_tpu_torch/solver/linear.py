@@ -609,7 +609,7 @@ class KrylovWorkspace:
 def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
                  restart: int = 30, maxiter: int = 30,
                  blocked: bool | None = None, ws: KrylovWorkspace = None,
-                 ctl=EAGER):
+                 ctl=EAGER, allreduce: Callable | None = None):
     """gmres with its control on the device: the counterpart of the JAX
     package's gmres (lax.while_loop over the iterations, lax.cond over the
     blocked path's second pass and the restarts), on one device.
@@ -635,6 +635,14 @@ def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
         zero rows the cycle did not fill. Only this update's rounding can
         differ from gmres's (a product over restart rather than j rows).
 
+    `allreduce` (a sum over the ranks, dist/comm.allreduce_sum) makes it
+    run distributed, as gmres(allreduce=) does: ||b||, each cycle's beta and
+    each iteration's h, h2 and norm are reduced before they are used, so
+    the Givens kernel, the compare-and-set kernel and every node decide
+    from values that are the same bits on every rank and all ranks take
+    the same path (in a graph: replay the same nodes). The classic path
+    only, as gmres.
+
     `ws`: the KrylovWorkspace to write (a new one when None). Returns (x,
     iterations, relres) as device tensors: x like b, iterations int32."""
     if b.is_cuda:
@@ -643,7 +651,9 @@ def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
         torch.backends.cudnn.allow_tf32 = False
     shape, n, dtype, dev = b.shape, b.numel(), b.dtype, b.device
     if blocked is None:
-        blocked = n >= _BLOCKED_N_THRESHOLD
+        blocked = allreduce is None and n >= _BLOCKED_N_THRESHOLD
+    if blocked and allreduce is not None:
+        raise ValueError("a distributed gmres_device runs the classic path")
     m = restart
     if ws is None:
         ws = KrylovWorkspace(n, m, dtype, dev, blocked)
@@ -656,13 +666,13 @@ def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
     mv = lambda v: matvec(v.reshape(shape)).reshape(n)
     pcf = lambda v: pc(v.reshape(shape)).reshape(n)
 
-    bnorm = _norm2(bf)
+    bnorm = _norm2(bf, allreduce)
     tol = rtol.to(dtype) * bnorm
     ws.x.copy_(x0.reshape(n))
     ws.iters.zero_()
     ws.res.fill_(float("inf"))
     cycle = functools.partial(_device_cycle, ws, mv, pcf, bf, m, tol, ctl,
-                              blocked)
+                              blocked, allreduce)
     for c in range(max(1, -(-maxiter // restart))):
         if c == 0:
             cycle(None)
@@ -673,12 +683,13 @@ def gmres_device(matvec: Callable, b, x0, pc: Callable, rtol,
             ws.res / torch.clamp_min(bnorm, 1e-300))
 
 
-def _device_cycle(ws, mv, pcf, bf, m, tol, ctl, blocked, pred):
+def _device_cycle(ws, mv, pcf, bf, m, tol, ctl, blocked, ar, pred):
     """One restart cycle of gmres_device, its writes selected by `pred`
-    (None inside a conditional node: it runs)."""
+    (None inside a conditional node: it runs); `ar` the sum over the ranks
+    (None: one device)."""
     x = ws.x
     r = bf - mv(x)
-    beta = _norm2(r)
+    beta = _norm2(r, ar)
     it0 = ws.iters.clone()
     for t in (ws.V, ws.Z, ws.H, ws.cs, ws.sn, ws.g):
         if t is not None:
@@ -686,7 +697,8 @@ def _device_cycle(ws, mv, pcf, bf, m, tol, ctl, blocked, pred):
     ws.V[0] = r / torch.clamp_min(beta, 1e-300)
     ws.g[0] = beta
     ws.res.copy_(_sel(pred, beta, ws.res))
-    step = _blocked_iteration if blocked else _classic_iteration
+    step = (_blocked_iteration if blocked else
+            functools.partial(_classic_iteration, ar=ar))
     # live = beta > tol decides the first iteration, each Givens update the
     # next
     ctl.run_chain(m, GREATER, beta, tol, ws.live,
@@ -705,20 +717,21 @@ def _device_cycle(ws, mv, pcf, bf, m, tol, ctl, blocked, pred):
     x.copy_(torch.where(jc > 0, upd, x))
 
 
-def _classic_iteration(ws, mv, pcf, tol, ctl, j, nxt, pred):
+def _classic_iteration(ws, mv, pcf, tol, ctl, j, nxt, pred, ar=None):
     """Iteration j of the classic path: gmres's CGS2 over the j+1 filled
-    rows, then the Givens kernel (which decides `nxt`, the next iteration's
-    node)."""
+    rows, its products reduced by `ar` as _cycle_classic's, then the Givens
+    kernel (which decides `nxt`, the next iteration's node)."""
     V = ws.V
+    ar_ = ar or (lambda t: t)
     z = pcf(V[j])
     w = mv(z)
     Vj = V[:j + 1]
-    h = Vj @ w
+    h = ar_(Vj @ w)
     w = w - Vj.T @ h
-    h2 = Vj @ w
+    h2 = ar_(Vj @ w)
     w = w - Vj.T @ h2
     h = h + h2
-    hn = _norm2(w)
+    hn = _norm2(w, ar)
     V[j + 1] = _sel(pred, w / torch.clamp_min(hn, 1e-300), V[j + 1])
     ws.Z[j] = _sel(pred, z, ws.Z[j])
     givens_column(h, hn, j, ws.H, ws.cs, ws.sn, ws.g, ws.res, tol, ws.live,

@@ -579,6 +579,18 @@ class SteadyBackwardEuler:
                                      device=rhs.device))
         return unew, res, iters, du
 
+    def _masked_capture(self) -> bool:
+        """Whether the device programs capture the step's guarded parts
+        (the Krylov iterations, restarts, second passes) as masked
+        branches rather than CUDA-graph IF nodes
+        (device_stepping.capture_graph)."""
+        return False
+
+    def _krylov_blocked(self, n: int) -> bool:
+        """Whether the device-form step's GMRES takes the blocked path at n
+        (as gmres_device decides it on one device)."""
+        return n >= linear._BLOCKED_N_THRESHOLD
+
     def _workspace(self, u):
         """The KrylovWorkspace of the device-form steps on states like u
         (n, the Krylov precision, the path gmres takes at that n), one per
@@ -586,8 +598,7 @@ class SteadyBackwardEuler:
         kdt = (torch.float32 if self.lin.mixed_precision
                and u.dtype == torch.float64 else u.dtype)
         n = u.numel()
-        key = (n, self.lin.restart, kdt, u.device,
-               n >= linear._BLOCKED_N_THRESHOLD)
+        key = (n, self.lin.restart, kdt, u.device, self._krylov_blocked(n))
         cache = self.__dict__.setdefault("_krylov_workspaces", {})
         if key not in cache:
             cache[key] = KrylovWorkspace(*key)

@@ -23,8 +23,8 @@ The port's rerun with the same --checkpoint resumes from it. A missing mesh
 exits 1; --pipeline runs step for step with the JAX CLI's --pipeline;
 --devices 2 --device cpu (two gloo ranks) runs what the JAX CLI's
 --devices 2 runs (DistributedFlowCase.run_output on two virtual CPU
-devices), with --pipeline too (and the port's distributed case with
-bake_mesh); unsteady and explicit control files print what the JAX CLI
+devices), with --pipeline too (the port's ranks pipelining the device
+form of their step; its distributed case's host loop beside it); unsteady and explicit control files print what the JAX CLI
 prints; the CLI module imports with jax blocked. Also:
 the perftest breakdown and the torch twin of __graft_entry__.entry().
 """
@@ -46,6 +46,7 @@ from chip_smoke import FUNCTIONALS, parse_cli_output
 from fvens_tpu.cases import cli as jax_cli
 from fvens_tpu_torch.cases import cli
 from fvens_tpu_torch.cases.convertformat import write_gmsh2
+from fvens_tpu_torch.dist.shard import STAGED_NOTICE
 from fvens_tpu_torch.mesh.meshgen import cylinder_omesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -245,14 +246,15 @@ def test_cli_refuses_unported_paths(runs, refusal):
         CLI accepts the pair and its distributed case never reads the
         flag): both run and give what --devices 2 gives, to the same
         tolerances, and the port prints its notice exactly once;
-      - --devices 2 with --pipeline added to both CLIs (the JAX CLI's
-        distributed solve pipelines its steps, the port's runs its host
-        loop: the same trajectory by design) held as --devices 2 is, the
-        port printing its notice exactly once; beside it the port's
-        DistributedFlowCase of the same files with bake_mesh on two gloo
-        ranks (tests/torch_dist_ranks.py:cli_case) held to the same JAX
-        run: the starter's Krylov iterations step for step, the first
-        AGREE main steps, the totals and the functionals as above."""
+      - --devices 2 with --pipeline added to both CLIs (both distributed
+        solves pipeline their step programs: the port's ranks the device
+        form of the step, eager over gloo) held as --devices 2 is, the
+        port printing no notice of the host-staged route (it runs on none);
+        beside it the port's DistributedFlowCase of the same files with
+        its host loop on two gloo ranks (tests/torch_dist_ranks.py:
+        cli_case) held to the same JAX run: the starter's Krylov iterations
+        step for step, the first AGREE main steps, the totals and the
+        functionals as above."""
     tmp, msh = runs["tmp"], runs["msh"]
     argv = ["--mesh_file", msh, "--log_every", "1"]
     if refusal == "pipeline":
@@ -304,8 +306,7 @@ def test_cli_refuses_unported_paths(runs, refusal):
         assert "2 ranks (gloo)" in proc.stdout
         assert proc.stdout.count(cli.FUNCTIONALS_EVERY_NOTICE) == (
             refusal == "devices_functionals_every")
-        assert proc.stdout.count(cli.PIPELINE_NOTICE) == (
-            refusal == "devices_pipeline")
+        assert STAGED_NOTICE not in proc.stdout
         j, t = parse_cli_output(jtext), parse_cli_output(proc.stdout)
         starter = re.compile(r"^\s*dBE \|\s+\d+ \|[^|]+\|[^|]+\|\s+(\d+) \|",
                              re.M)
@@ -316,12 +317,11 @@ def test_cli_refuses_unported_paths(runs, refusal):
         runs = [t]
         if refusal == "devices_pipeline":
             # the JAX CLI logs no Krylov iterations inside a burst (0):
-            # there the port's distributed case with bake_mesh (its host
-            # loop) stands in, itself held to the JAX run as the CLI is
+            # there the port's distributed case with its host loop stands
+            # in, itself held to the JAX run as the CLI is
             import torch_dist_ranks as R
             from fvens_tpu_torch.dist import launch
-            b = launch.run(R.cli_case, 2, args=(ctrl, msh, SOLVERC,
-                                                dict(bake_mesh=True)),
+            b = launch.run(R.cli_case, 2, args=(ctrl, msh, SOLVERC, {}),
                            device="cpu", threads=1, timeout=600,
                            join_timeout=600)[0]
             bs = [str(n) for n in b["starter_iters"]]

@@ -18,7 +18,12 @@ CPU.
   - the device-form step (SteadyBackwardEuler._device_step) equal to the
     host step, and run under a dispatch mode that raises on every
     operation that reads a tensor back to the host (.item(), bool() of a
-    tensor, nonzero, a tensor made from host data): it reads nothing.
+    tensor, nonzero, a tensor made from host data): it reads nothing;
+  - gmres_device(allreduce=): with an identity allreduce bit for bit the
+    one-device classic gmres_device; refusing the blocked path; on two
+    gloo ranks (tests/torch_dist_ranks.py:gmres_pairs, the Krylov system
+    of a distributed implicit step) the host gmres(allreduce=)'s Krylov
+    iterations and its x to 1e-12 relative at f64.
 """
 
 import jax.numpy as jnp
@@ -27,7 +32,6 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from fvens_tpu.solver.linear import gmres as jax_gmres
 from fvens_tpu_torch.solver import linear
@@ -35,7 +39,9 @@ from fvens_tpu_torch.solver.givens_kernels import givens_column
 from fvens_tpu_torch.solver.linear import (_hessenberg_column, gmres,
                                            gmres_device)
 
+import torch_dist_ranks as R
 from test_torch_blocked_gmres import _banded_systems, _dense_systems
+from torch_dist_ranks import NoHostRead as _NoHostRead
 
 RESTART = 90
 DTYPES = {np.float32: torch.float32, np.float64: torch.float64}
@@ -237,23 +243,6 @@ def test_device_gmres_f32_matches_the_host():
         assert float((xd - xh).abs().max()) <= 1e-5 * float(xh.abs().max())
 
 
-class _NoHostRead(TorchDispatchMode):
-    """Raises on an operation that reads a tensor's value on the host or
-    makes a tensor from host data (on the card, a synchronizing copy)."""
-    BANNED = ("_local_scalar_dense", "nonzero", "masked_select",
-              "lift_fresh", "item", "is_nonzero")
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.overloadpacket.__name__
-        # a boolean mask index sizes its result from the mask's count
-        masked = name.startswith("index") and len(args) > 1 and any(
-            torch.is_tensor(i) and i.dtype == torch.bool
-            for i in (args[1] or ()))
-        if name in self.BANNED or masked:
-            raise AssertionError(f"host read: {func}")
-        return func(*args, **(kwargs or {}))
-
-
 def _cylinder_solver(mixed: bool):
     from fvens_tpu_torch.cases import bigmesh_case
     from fvens_tpu_torch.cases.casesolvers import build_space
@@ -307,3 +296,46 @@ def test_device_step_poisons_a_nan_state():
     f = lambda x: torch.tensor(x, dtype=torch.float64)
     _, res, _, _ = solver._device_step(cm, u, f(50.0), f(1e-2), f(1.0))
     assert bool(torch.isnan(res))
+
+
+@pytest.mark.parametrize("restart,maxiter,rtol", [(90, 90, 1e-2),
+                                                  (10, 35, 1e-8)])
+def test_device_gmres_with_an_identity_allreduce_is_the_classic_path(
+        restart, maxiter, rtol):
+    """allreduce = identity adds no operation to the classic path's
+    arithmetic: x, the iterations and relres equal bit for bit."""
+    _, (mv_t, pc_t), b = _banded_systems(np.float64, 500.0)
+    bt = torch.from_numpy(b)
+    runs = [gmres_device(mv_t, bt, torch.zeros_like(bt), pc_t, rtol,
+                         restart=restart, maxiter=maxiter, blocked=False,
+                         **kw) for kw in ({}, dict(allreduce=lambda t: t))]
+    (x1, i1, r1), (x2, i2, r2) = runs
+    assert int(i1) > 0
+    assert torch.equal(x1, x2) and torch.equal(i1, i2) and torch.equal(r1, r2)
+
+
+def test_device_gmres_with_allreduce_refuses_the_blocked_path():
+    _, (mv_t, pc_t), b = _banded_systems(np.float64, 500.0)
+    bt = torch.from_numpy(b)
+    with pytest.raises(ValueError, match="classic path"):
+        gmres_device(mv_t, bt, torch.zeros_like(bt), pc_t, 1e-2,
+                     blocked=True, allreduce=lambda t: t)
+
+
+@pytest.fixture(scope="module")
+def gmres_pairs():
+    """torch_dist_ranks.gmres_pairs on two gloo ranks."""
+    from fvens_tpu_torch.dist import launch
+    return launch.run(R.gmres_pairs, 2, device="cpu", threads=1, timeout=60,
+                      join_timeout=300)[0]
+
+
+@pytest.mark.parametrize("case", R.GMRES_CASES, ids=str)
+def test_distributed_device_gmres_matches_the_host_gmres(gmres_pairs, case):
+    """On two gloo ranks, the device-controlled GMRES over reduced inner
+    products gives the host-controlled one's Krylov iterations and x to
+    1e-12 relative (f64; only the final update's rounding differs)."""
+    xh, ih, rh, xd, idv, rd = gmres_pairs[case]
+    assert idv == ih > 0
+    assert np.abs(xd - xh).max() <= 1e-12 * np.abs(xh).max()
+    assert rd == pytest.approx(rh, rel=1e-10)

@@ -18,7 +18,21 @@ not installed:
     x4 at rtol 1e-10) in a 1-rank NCCL world (K1 and the fused K1b: one
     part has no rest list) and a 2-rank gloo world on one card
     (host-staged), each against the same world size on the CPU: equal
-    Krylov iterations, res to 1e-10, u to 1e-7 relative (1e-10 absolute).
+    Krylov iterations, res to 1e-10, u to 1e-7 relative (1e-10 absolute);
+  - on one NCCL rank, the distributed step's StepProgram (the device form
+    captured as a CUDA graph, its collectives inside the IF nodes'
+    bodies) equal to its eager run bit for bit at two CFLs
+    (tests/torch_dist_ranks.py:captured_step), with one Givens update per
+    Krylov iteration, one compare-and-set launch per cycle and no
+    set-condition kernel counted on the card, no NCCL kernel in its graph
+    (a one-rank reduction is a clone), and an allreduce raising nothing
+    under no_host_sync; the same on D = 2 and 4 NCCL ranks, one card each
+    (skipped where fewer cards are visible), whose step is captured
+    masked (NCCL's kernels inside an IF body crash the capture): every
+    Krylov iteration runs (one Givens update each of the restart's), the
+    graph holds no IF node and holds NCCL kernels, and every rank replays
+    the same graph (a rank that diverged would hang its peers: the
+    world's timeouts fail the test).
 """
 
 import numpy as np
@@ -101,3 +115,35 @@ def test_banded_step_on_the_card_matches_the_cpu(cuda, D, backend, device):
         assert has_bl == banded_on and it == cit
         np.testing.assert_allclose(res, cres, rtol=1e-10)
         np.testing.assert_allclose(u, cu, rtol=1e-7, atol=1e-10)
+
+
+def _captured_step_on(D):
+    out = launch.run(R.captured_step, D, backend="nccl", device="cuda",
+                     timeout=60, join_timeout=600)[0]
+    assert out.pop("reduce_in_no_host_sync")
+    graph, masked, m = out.pop("graph"), out.pop("masked"), out.pop("restart")
+    assert "error" not in graph, graph
+    assert masked is (D > 1)
+    for cfl, (equal, its, res, n) in out.items():
+        assert equal, cfl
+        assert its > 0 and np.isfinite(res)
+        assert n["givens_column"] == (m if masked else its)
+        assert n["set_if"] == 0 and n["cond_set"] == 1
+        assert (n["graph_if"] == 0) is masked
+        # one part: K1 once a matvec; rest lists: more (the sequence)
+        assert n["banded_apply"] == its + 1 if D == 1 \
+            else n["banded_apply"] > its + 1
+    return graph
+
+
+def test_captured_distributed_step_equals_its_eager_run(cuda):
+    graph = _captured_step_on(1)
+    assert graph["if_bodies"] > 0 and not graph["nccl_kernels"]
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_captured_distributed_step_on_separate_cards(cuda, D):
+    if torch.cuda.device_count() < D:
+        pytest.skip(f"needs {D} CUDA cards (one NCCL rank a card)")
+    graph = _captured_step_on(D)
+    assert graph["if_bodies"] == 0 and graph["nccl_kernels"].get("top", 0) > 0

@@ -19,7 +19,9 @@ in flight is discarded, the recovery history is the single-step loop's),
 the controller
 on device scalars (TorchXP) against its NumPy evaluation, and the
 distributed solver's device_steps refusal and its pipeline and bake_mesh,
-which run its host loop (equal to it on two gloo ranks).
+which run the device form of its step on gloo ranks on the CPU (held to
+its host loop on two ranks) and on NCCL, and its host loop on the
+host-staged route.
 """
 
 import numpy as np
@@ -216,10 +218,12 @@ def dist_modes():
 @pytest.mark.parametrize("mode", ["device_steps", "pipeline", "bake_mesh"])
 def test_distributed_solver_refuses_the_device_modes(mode, request):
     """device_steps > 1 is refused, with the JAX package's wording;
-    pipeline and bake_mesh are accepted, as the JAX package accepts them,
-    and run the host loop: on two gloo ranks the first 20 steps of the
-    distributed main solve (banded bsgs x6 on cylinder_omesh(32, 12))
-    equal the host loop's, step for step and bit for bit."""
+    pipeline and bake_mesh run the device form of the distributed step
+    (device_resident on gloo ranks on the CPU): on two gloo ranks the
+    first 20 steps of the distributed main solve (banded bsgs x6 on
+    cylinder_omesh(32, 12), f64) take the host loop's Krylov iterations
+    step for step, its residuals to 1e-9 relative and its state to 1e-9
+    of max|u|."""
     from torch_dist_ranks import HISTORY_STEPS
 
     from fvens_tpu_torch.dist.shard import DistributedBackwardEuler
@@ -227,11 +231,33 @@ def test_distributed_solver_refuses_the_device_modes(mode, request):
         with pytest.raises(NotImplementedError, match="device_steps>1"):
             _solver(DistributedBackwardEuler, device_steps=4)
         return
-    assert not _solver(DistributedBackwardEuler,
-                       **{mode: True}).device_resident
     h = request.getfixturevalue("dist_modes")
-    assert len(h["host"]) == HISTORY_STEPS
-    assert h[mode] == h["host"]
+    (rows_h, u_h, _), (rows_m, u_m, resident) = h["host"], h[mode]
+    assert resident
+    assert len(rows_h) == len(rows_m) == HISTORY_STEPS
+    for a, b in zip(rows_h, rows_m):
+        assert a[0] == b[0] and a[4] == b[4], a[0]
+        assert b[2] == pytest.approx(a[2], rel=1e-9, abs=0)
+        assert b[3] == pytest.approx(a[3], rel=1e-6)
+    assert np.abs(u_m - u_h).max() <= 1e-9 * np.abs(u_h).max()
+
+
+def test_distributed_solver_is_device_resident_by_route():
+    """device_resident wherever no message passes through host memory:
+    NCCL and gloo on the CPU; not on gloo ranks sharing a card (host-
+    staged), whose solve runs the host loop. Built without a process
+    group."""
+    import types
+
+    from fvens_tpu_torch.dist.comm import Comm
+    from fvens_tpu_torch.dist.shard import DistributedBackwardEuler
+    cuda = torch.device("cuda", 0)
+    for backend, dev, want in (("nccl", cuda, True), ("gloo", cuda, False),
+                               ("gloo", torch.device("cpu"), True)):
+        s = _solver(DistributedBackwardEuler, pipeline=True)
+        s.flow = types.SimpleNamespace(comm=Comm(0, 2, backend, dev))
+        assert s.device_resident is want, (backend, dev)
+        assert s.flow.comm.staged is not want
 
 
 def test_modes_fall_back_to_the_host_loop_where_the_jax_package_does():

@@ -10,9 +10,11 @@ gathered in global cell order (None on the other ranks where it says so).
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from fvens_tpu_torch.config import (BCSpec, LinearSolverConfig,
                                     NonlinearUpdateConfig, NumericsConfig,
@@ -22,6 +24,7 @@ from fvens_tpu_torch.dist.comm import (allreduce_sum, halo_exchange,
 from fvens_tpu_torch.dist.partition import partition_mesh
 from fvens_tpu_torch.dist.shard import DistributedBackwardEuler, ShardedFlow
 from fvens_tpu_torch.fv.residual import FlowFV
+from fvens_tpu_torch.solver.linear import gmres, gmres_device
 from fvens_tpu_torch.mesh.device_mesh import compile_mesh
 from fvens_tpu_torch.mesh.meshgen import cylinder_omesh
 from fvens_tpu_torch.physics.gas import GasPhysics
@@ -33,6 +36,23 @@ SCHEMES = ((False, "LINEAR", False), (True, "LINEAR", False),
            (True, "VANALBADA", False), (True, "LINEAR", True))
 TIGHT = dict(restart=80, maxiter=80, rtol=1e-10, rtol_adapt=False)
 HISTORY_STEPS = 20
+
+
+class NoHostRead(TorchDispatchMode):
+    """Raises on an operation that reads a tensor's value on the host or
+    makes a tensor from host data (on the card, a synchronizing copy)."""
+    BANNED = ("_local_scalar_dense", "nonzero", "masked_select",
+              "lift_fresh", "item", "is_nonzero")
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        # a boolean mask index sizes its result from the mask's count
+        masked = name.startswith("index") and len(args) > 1 and any(
+            torch.is_tensor(i) and i.dtype == torch.bool
+            for i in (args[1] or ()))
+        if name in self.BANNED or masked:
+            raise AssertionError(f"host read: {func}")
+        return func(*args, **(kwargs or {}))
 
 
 def make_space(order2=True, viscous=False, recon="LINEAR") -> FlowFV:
@@ -114,8 +134,11 @@ def fe_step(comm) -> tuple:
 def implicit_steps(comm) -> dict:
     """One backward-Euler step at CFL 50 from the free stream, bjacobi at
     rtol 1e-10, with the assembled ("implicit"), exact-JVP ("mf_jvp") and
-    FD ("mf_fd") matvecs: {kind: (u, res, iterations)} gathered."""
+    FD ("mf_fd") matvecs: {kind: (u, res, iterations)} gathered, and
+    under ("device", kind) the same of the device form (_device_step),
+    run after the host step under NoHostRead."""
     flow, u0 = _flow32(comm)
+    f = lambda x: torch.tensor(x, dtype=torch.float64)
     out = {}
     for name, lin in (("implicit", {}),
                       ("mf_jvp", dict(matrix_free=True)),
@@ -123,7 +146,52 @@ def implicit_steps(comm) -> dict:
         be = _solver(flow, pc="bjacobi", **TIGHT, **lin)
         u1, res, it = be._step(flow.dist_mesh(), u0, 50.0, 1e-10)
         out[name] = (flow.gather_solution(u1), res, it)
+        cfl, rtol, one = f(50.0), f(1e-10), f(1.0)
+        with NoHostRead():
+            u1, res, it, _ = be._device_step(flow.dist_mesh(), u0, cfl, rtol,
+                                             one)
+        out[("device", name)] = (flow.gather_solution(u1), float(res),
+                                 int(it))
     return out
+
+
+def gmres_pairs(comm) -> dict:
+    """The host gmres(allreduce=) and gmres_device(allreduce=) on the
+    Krylov system of one distributed implicit step (f64, bsgs x4 on slot
+    gathers, the Krylov vector exchanged at every matvec, masked), for
+    each (restart, maxiter, rtol) of GMRES_CASES: {case: (x host, its
+    iterations, relres, x device, its iterations, relres)}, the x
+    gathered."""
+    flow, u0 = _flow32(comm)
+    be = _solver(flow, pc="bsgs", pc_sweeps=4)
+    dm = flow.dist_mesh()
+    mesh = dm.mesh
+    ex = partial(halo_exchange, dm.exch)
+    ar = partial(allreduce_sum, comm)
+    u = ex(u0)
+    _, lrhs, ops = be.step_operators(mesh, u, 500.0, exchange=ex,
+                                     allreduce=ar)
+    mv, pc = be._linear_operators(ops)
+    mask = mesh.cell_mask[:, None].to(lrhs.dtype)
+    matvec = lambda x: mv(ex(x)) * mask
+    pcm = lambda v: pc(v) * mask
+    b = lrhs * mask
+    out = {}
+    for restart, maxiter, rtol in GMRES_CASES:
+        xh, ih, rh = gmres(matvec, b, torch.zeros_like(b), pcm,
+                           restart=restart, maxiter=maxiter, rtol=rtol,
+                           blocked=False, allreduce=ar)
+        xd, idv, rd = gmres_device(matvec, b, torch.zeros_like(b), pcm, rtol,
+                                   restart=restart, maxiter=maxiter,
+                                   allreduce=ar)
+        out[(restart, maxiter, rtol)] = (
+            flow.gather_solution(xh), ih, float(rh),
+            flow.gather_solution(xd), int(idv), float(rd))
+    return out
+
+
+# (restart, maxiter, rtol) of gmres_pairs: one cycle, and restarts
+GMRES_CASES = ((90, 90, 1e-6), (10, 35, 1e-10))
 
 
 def banded_steps(comm) -> dict:
@@ -211,8 +279,9 @@ def history(comm, mesh=(32, 12)) -> list:
 
 def mode_histories(comm, mesh=(32, 12)) -> dict:
     """history()'s distributed solve under the host loop and with pipeline
-    and bake_mesh set (the distributed solver accepts both and runs its
-    host loop): {mode: the first HISTORY_STEPS accepted steps}."""
+    and bake_mesh set (on gloo ranks on the CPU the device form of the
+    step, eager): {mode: (the first HISTORY_STEPS accepted steps, the
+    final state gathered, whether the solver is device_resident)}."""
     from fvens_tpu_torch.cases.casesolvers import build_space
     cfg = history_case()
     md = cylinder_omesh(*mesh, stretch=1.15 ** (20.0 / mesh[1]))
@@ -221,10 +290,13 @@ def mode_histories(comm, mesh=(32, 12)) -> dict:
     out = {}
     for mode, pt in (("host", {}), ("pipeline", dict(pipeline=True)),
                      ("bake_mesh", dict(bake_mesh=True))):
-        _, info = flow.solve_implicit(
-            dataclasses.replace(cfg.main, **pt), lin=cfg.linear,
-            nl=cfg.nl_update, max_steps=HISTORY_STEPS)
-        out[mode] = info.history
+        be = DistributedBackwardEuler(
+            space=flow.space, cfg=dataclasses.replace(cfg.main, **pt),
+            lin=cfg.linear, nl=cfg.nl_update, flow=flow)
+        u, info = be.solve(flow.dist_mesh(), flow.initial_state(),
+                           max_steps=HISTORY_STEPS)
+        out[mode] = (info.history, flow.gather_solution(u),
+                     be.device_resident)
     return out
 
 
@@ -329,4 +401,63 @@ def be_steps(comm) -> dict:
             flow.initial_state(), 50.0, rtol, lin=LinearSolverConfig(**lin),
             nl=NonlinearUpdateConfig(scheme="robust_flow"))
         out[name] = (flow.gather_solution(u1), res, it)
+    return out
+
+
+def captured_step(comm) -> dict:
+    """The cylinder case's main step (banded bsgs x6, mixed) on
+    cylinder_omesh(64, 32) from a perturbed free stream on this rank's
+    card: the distributed StepProgram (captured, its collectives inside)
+    against the eager device-form step at two CFLs through the same
+    graph: {cfl: (all outputs equal, Krylov iterations, res, the launches
+    counted on the card)}, under "reduce_in_no_host_sync" whether an
+    allreduce_sum runs under no_host_sync (no host synchronisation), and
+    under "graph" the nodes of the step's graph captured once more
+    (chip_smoke.captured_nodes: by type, at the top and inside the IF
+    nodes' bodies, NCCL's kernels among them), under "masked" whether
+    the program captures masked branches rather than IF nodes, under
+    "restart" the Krylov restart."""
+    from fvens_tpu_torch.cases.casesolvers import build_space
+    from fvens_tpu_torch.solver import device_counts
+    from fvens_tpu_torch.solver.device_stepping import (StepProgram,
+                                                        no_host_sync)
+    dev = comm.device
+    cfg = case_config()
+    md = cylinder_omesh(64, 32, stretch=1.15 ** (20.0 / 32))
+    flow = ShardedFlow(build_space(cfg), partition_mesh(md, BCS, comm.size),
+                       comm)
+    be = DistributedBackwardEuler(space=flow.space, cfg=cfg.main,
+                                  lin=cfg.linear, nl=cfg.nl_update,
+                                  flow=flow)
+    dm = flow.dist_mesh()
+    lm, bl = dm.to(torch.float32), be._banded(dm)
+    u0 = flow.initial_state()
+    u = u0 * (1.0 + 0.01 * torch.from_numpy(np.random.default_rng(5)
+                                            .standard_normal(tuple(u0.shape))
+                                            ).to(dev))
+    f = lambda x: torch.tensor(x, dtype=torch.float64, device=dev)
+    out = {}
+    device_counts.enable(dev)
+    try:
+        prog = StepProgram(be, dm, lm, bl, u)
+        prog(u, 50.0, 1e-2, 1.0)        # the warm-up and the capture
+        for cfl in (500.0, 2000.0):
+            want = be._device_step(dm, u, f(cfl), f(1e-2), f(1.0), lmesh=lm,
+                                   bl=bl)[:3]
+            device_counts.zero()
+            got = prog(u, cfl, 1e-2, 1.0)
+            torch.cuda.synchronize()
+            out[cfl] = (all(torch.equal(a, b) for a, b in zip(got, want)),
+                        int(got[2]), float(got[1]), device_counts.read(dev))
+    finally:
+        device_counts.disable()
+    from chip_smoke import captured_nodes
+    out.update(graph=captured_nodes(dev, prog), masked=prog.program.masked,
+               restart=be.lin.restart)
+    try:
+        with no_host_sync(dev):
+            allreduce_sum(comm, torch.ones(91, device=dev))
+        out["reduce_in_no_host_sync"] = True
+    except RuntimeError:
+        out["reduce_in_no_host_sync"] = False
     return out
