@@ -47,16 +47,18 @@ wrappers with the launch counts zeroed just before it and read just after:
 In order:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds csrc/banded_apply.cu, csrc/banded_bsgs.cu, csrc/row_set.cu,
-     csrc/givens_column.cu and csrc/graph_if.cu from the checkout, one
+  2. builds csrc/banded_apply.cu, csrc/banded_bsgs.cu,
+     csrc/banded_bsgs_cluster.cu, csrc/row_set.cu, csrc/givens_column.cu
+     and csrc/graph_if.cu from the checkout, one
      nvcc each, all at once, and prints ptxas's
      registers, stack frame and spills for each kernel instantiation (one
      "ptxas" JSON line per library);
   3. holds each kernel against its plain PyTorch twin: banded_apply on the
      real step-0 operators of both paths (matvec K=7, D^-1 v K=1, bsgs sweep
-     K=6) and of the banded 512x512 heat equation (1x1 blocks: matvec K=5,
-     D^-1 v K=1, sweep K=4) and the fused bsgs apply on the same operators,
-     at f32 (max abs
+     K=6) and of the banded 256x256 and 512x512 heat equation (1x1 blocks:
+     matvec K=5, D^-1 v K=1, sweep K=4) and the fused bsgs apply on the
+     same operators (at 1x1 blocks in both designs, the cluster kernel and
+     the cooperative one, timed side by side), at f32 (max abs
      error <= 1e-5 max|y|) and f64 (<= 1e-12 max|y|), the fused apply also
      equal value for value to the seven-launch banded_apply sequence; and
      row_set at n = 819,200 (the 640x320 basis), 262,528 (where the TPU
@@ -73,7 +75,9 @@ In order:
      with the first sweep, and a later sweep, beside the sequence's, with
      the solver's plan and with other shared memory), and the fixed cost of
      one of its phases where the data is negligible
-     (profile_step.bsgs_phase_cost);
+     (profile_step.bsgs_phase_cost; at 1x1 blocks for both designs,
+     bsgs_phase_cost_v1: a flag-chained phase against a sweep with its
+     cluster barrier);
   4. runs the 640x320 cylinder solve (a warm-up solve, then the timed one):
      gmres must run blocked (n >= linear._BLOCKED_N_THRESHOLD), the main
      solve must converge to 1e-10 with a finite state, row_set must launch
@@ -178,10 +182,11 @@ In order:
      record's steps, t to 1e-12 and state to 1e-10;
  19. E: the heat equation (DiffusionFV, V = 1) on unit_square(n) quads at
      HEAT_N, implicit to 1e-9, on the gather path (bcsgs x3) and banded
-     (HEAT_BANDED, bsgs x6: K1 and the fused K1b with 1x1 blocks):
+     (HEAT_BANDED, bsgs x6: K1 and K1b's cluster kernel with 1x1 blocks):
      converged, row_set once per Krylov iteration at 512x512 (blocked GMRES
      at n = 262,144), K1 once per Krylov iteration and once per GMRES
-     cycle, K1b once per Krylov iteration (and once per cycle, blocked),
+     cycle, the cluster kernel once per Krylov iteration (and once per
+     cycle, blocked) and the cooperative bsgs kernel never,
      L2 error order in [1.9, 2.1] on each path; the banded solves take the
      steps of the JAX package's CPU run (JAX_HEAT_BANDED_RECORD), its
      Krylov iterations within 1 and its L2 error to 1e-8 relative.
@@ -339,7 +344,8 @@ limit.
 Any failure exits non-zero before the result. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
 kernel record (launches of banded_apply and banded_bsgs from the banded
-640x320 solve of step 4, of row_set from the gather 640x320 solve of step
+640x320 solve of step 4, of banded_bsgs_cluster from the banded 512x512
+heat solve of step 19, of row_set from the gather 640x320 solve of step
 5, of givens_column, graph_if (IF nodes reached) and cond_set from I1's
 pipelined solve, counted on the card, and each path's counts under
 launches_by_path, the CLI of step 12 and the paths of steps 15-23 among
@@ -362,6 +368,10 @@ KERNELS = {                     # name: (source, the TPU kernel it replaces)
                      "fvens_tpu/solver/pallas_banded.py:107"),
     "banded_bsgs": ("fvens_tpu_torch/csrc/banded_bsgs.cu",
                     "fvens_tpu/solver/pallas_banded.py:107"),
+    # the same TPU kernel's bsgs role at 1x1 blocks (the heat equation),
+    # where no band wraps
+    "banded_bsgs_cluster": ("fvens_tpu_torch/csrc/banded_bsgs_cluster.cu",
+                            "fvens_tpu/solver/pallas_banded.py:107"),
     "row_set": ("fvens_tpu_torch/csrc/row_set.cu",
                 "fvens_tpu/solver/pallas_banded.py:254"),
     # no pl.pallas_call: the JAX package's Givens update is XLA inside its
@@ -602,7 +612,7 @@ PTXAS_BEFORE_V4 = {
 
 
 def build_kernels():
-    """The five CUDA libraries, one nvcc each, started together."""
+    """The six CUDA libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fvens_tpu_torch.solver import banded_kernels as bk
@@ -612,13 +622,14 @@ def build_kernels():
     t0 = time.perf_counter()
     loaders = {"banded_apply": bk.load_library,
                "banded_bsgs": bk.load_bsgs_library,
+               "banded_bsgs_cluster": bk.load_bsgs_cluster_library,
                "row_set": rk.load_library,
                "givens_column": gk.load_library,
                "graph_if": graph_if.load_library}
     with ThreadPoolExecutor(len(loaders)) as ex:
         jobs = {name: ex.submit(fn) for name, fn in loaders.items()}
         builds = {name: job.result() for name, job in jobs.items()}
-    print(f"build: {time.perf_counter() - t0:.2f} s for all five",
+    print(f"build: {time.perf_counter() - t0:.2f} s for all six",
           flush=True)
     for name, build in builds.items():
         print(f"  {name}: nvcc {build.seconds:.2f} s -> "
@@ -640,7 +651,11 @@ def ptxas_summary(log: str) -> list:
             name = m.group(1)
             t = re.search(r"bsgs_kernelI([fd])Li(\d+)ELi(\d+)E", name)
             a = re.search(r"apply_kernelI([fd])Li(\d+)E", name)
-            if t:
+            c = re.search(r"cluster_kernelI([fd])Li(\d+)E", name)
+            if c:
+                dtype = "f32" if c.group(1) == "f" else "f64"
+                name = f"{dtype} V=1 K={c.group(2)}"
+            elif t:
                 dtype = "f32" if t.group(1) == "f" else "f64"
                 name = f"{dtype} V={t.group(2)} K={t.group(3)}"
             elif a:
@@ -705,8 +720,10 @@ def banded_checks(dev, path: str, make, state=None, phase_times=True,
     precision off): banded_apply in its three roles (matvec with the
     diagonal, D^-1 v K=1, bsgs sweep; K=7, 1, 6 on the O-meshes' 4x4
     blocks, 5, 1, 4 on the heat equation's 1x1 blocks), and the fused bsgs
-    apply, which must also equal the seven-launch banded_apply sequence
-    value for value. `make(mixed)` returns (solver, mesh); `state(mesh)`
+    apply (at 1x1 blocks in both designs, the cluster kernel and the
+    cooperative one, timed side by side: a row each), which must also
+    equal the seven-launch banded_apply sequence value for value.
+    `make(mixed)` returns (solver, mesh); `state(mesh)`
     the state of step 0 (default: the case's initial state);
     `phase_times`: time the fused apply phase by phase too;
     `precisions`: the (mixed, tolerance) pairs to check. Returns
@@ -770,57 +787,71 @@ def banded_checks(dev, path: str, make, state=None, phase_times=True,
             rows.append(row)
             print("banded_apply check", json.dumps(row), flush=True)
 
-        # the fused bsgs apply: = the sequence, ~ the twin
+        # the fused bsgs apply: = the sequence, ~ the twin; at 1x1 blocks
+        # in both designs, timed side by side
         sweeps = solver.lin.pc_sweeps
-        fused = bk.BsgsApply(bands1, bandsn, dms_n, sweeps, ops.bl.support)
         seq = bk.make_banded_bsgs_sequence(ops.Dinv, ops.DNbt,
                                            ops.bl.offsets, sweeps)
         twin = tb.make_banded_bsgs(ops.Dinv, ops.DNbt, ops.bl.offsets, sweeps)
-        f0, n0 = bk.bsgs_apply.launches, bk.banded_apply.launches
-        z = fused(x)
-        torch.cuda.synchronize()
-        check(bk.bsgs_apply.launches == f0 + 1
-              and bk.banded_apply.launches == n0,
-              "the fused bsgs apply is not one launch of its kernel")
         zs = seq(x)
         zp = twin(x)
-        err = float((z - zp).abs().max())
         scale = float(zp.abs().max())
-        p = fused.plan
-        row = dict(path=path, NC=cm.NC, V=V, K=len(dms_n), sweeps=sweeps,
-                   dtype=dname, blocks=p.blocks, chunk=p.chunk,
-                   n_res=p.n_res, smem_bytes=p.smem_bytes,
-                   equal_to_sequence=bool(torch.equal(z, zs)),
-                   max_abs_err=err, max_abs_y=scale, tol=tol * scale)
-        check(row["equal_to_sequence"],
-              f"the fused bsgs apply differs from the sequence: {row}")
-        check(np.isfinite(err) and err <= tol * scale,
-              f"the fused bsgs apply disagrees with its twin: {row}")
-        row["ms"] = event_ms(lambda: fused(x))
-        row["sequence_ms"] = event_ms(lambda: seq(x))
-        row["plain_ms"] = event_ms(lambda: twin(x))
-        row["device_ms"] = device_ms(lambda: fused(x))
-        row["sequence_device_ms"] = device_ms(lambda: seq(x))
         # what this operator needs: the bands over their supports only
         band_cells = sum(hi - lo for lo, hi in ops.bl.support)
-        row["bound_bytes"] = (V * V * band_cells
-                              + (V * V + 2 * V) * cm.NC) * it
-        row["bound_ms"], row["bound_by"] = bound(
-            row["bound_bytes"],
+        bound_bytes = (V * V * band_cells + (V * V + 2 * V) * cm.NC) * it
+        bound_ms, bound_by = bound(
+            bound_bytes,
             2 * V * V * (cm.NC + sweeps * band_cells) + V * sweeps * cm.NC,
             dname)
-        row["bound_all_cells_ms"], _ = bound(
+        common = dict(sequence_ms=event_ms(lambda: seq(x)),
+                      plain_ms=event_ms(lambda: twin(x)),
+                      sequence_device_ms=device_ms(lambda: seq(x)),
+                      bound_bytes=bound_bytes, bound_ms=bound_ms,
+                      bound_by=bound_by)
+        common["bound_all_cells_ms"], _ = bound(
             ((1 + len(dms_n)) * V * V + 2 * V) * cm.NC * it, 0, dname)
-        row["bound_share"] = row["bound_ms"] / row["device_ms"]
-        row["sequence_bound_share"] = (row["bound_ms"]
-                                       / row["sequence_device_ms"])
-        row["fused_over_sequence"] = (row["device_ms"]
-                                      / row["sequence_device_ms"])
-        if phase_times:
-            row["phases"] = bsgs_phase_times(bands1, bandsn, dms_n,
-                                             ops.bl.support, sweeps, x)
-        frows.append(row)
-        print("banded_bsgs check", json.dumps(row), flush=True)
+        for design in bk.DESIGNS if V == 1 else (None,):
+            fused = bk.BsgsApply(bands1, bandsn, dms_n, sweeps,
+                                 ops.bl.support, design=design)
+            f0, n0 = bk.bsgs_apply.launches, bk.banded_apply.launches
+            c0 = bk.bsgs_apply.cluster_launches
+            z = fused(x)
+            torch.cuda.synchronize()
+            cluster = fused.design == "cluster"
+            check((bk.bsgs_apply.launches - f0,
+                   bk.bsgs_apply.cluster_launches - c0,
+                   bk.banded_apply.launches - n0)
+                  == ((0, 1, 0) if cluster else (1, 0, 0)),
+                  f"the fused bsgs apply ({fused.design}) is not one launch "
+                  "of its kernel")
+            err = float((z - zp).abs().max())
+            p = fused.plan
+            row = dict(path=path, NC=cm.NC, V=V, K=len(dms_n),
+                       sweeps=sweeps, dtype=dname, design=fused.design,
+                       **(dict(cluster=p.cluster, clusters=p.clusters,
+                               owned=p.owned, slice=p.slice)
+                          if cluster else
+                          dict(blocks=p.blocks, chunk=p.chunk,
+                               n_res=p.n_res)),
+                       smem_bytes=p.smem_bytes,
+                       equal_to_sequence=bool(torch.equal(z, zs)),
+                       max_abs_err=err, max_abs_y=scale, tol=tol * scale)
+            check(row["equal_to_sequence"],
+                  f"the fused bsgs apply differs from the sequence: {row}")
+            check(np.isfinite(err) and err <= tol * scale,
+                  f"the fused bsgs apply disagrees with its twin: {row}")
+            row.update(common, ms=event_ms(lambda: fused(x)),
+                       device_ms=device_ms(lambda: fused(x)))
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            row["sequence_bound_share"] = (row["bound_ms"]
+                                           / row["sequence_device_ms"])
+            row["fused_over_sequence"] = (row["device_ms"]
+                                          / row["sequence_device_ms"])
+            if phase_times:
+                row["phases"] = bsgs_phase_times(bands1, bandsn, dms_n,
+                                                 ops.bl.support, sweeps, x)
+            frows.append(row)
+            print("banded_bsgs check", json.dumps(row), flush=True)
     return rows, frows
 
 
@@ -1030,6 +1061,7 @@ def zero_counts():
     from fvens_tpu_torch.solver import graph_if
     from fvens_tpu_torch.solver import rowset_kernels as rk
     bk.banded_apply.launches = bk.bsgs_apply.launches = 0
+    bk.bsgs_apply.cluster_launches = 0
     rk.row_set.launches = gk.givens_column.launches = 0
     graph_if.GraphControl.launches = graph_if.cond_set.launches = 0
 
@@ -1038,9 +1070,12 @@ def read_counts() -> dict:
     """The host launch counts of every kernel: a launch captured into a
     graph counts once, at capture (phase I reads its own on the card)."""
     from fvens_tpu_torch.entry import kernel_launches
+    from fvens_tpu_torch.solver import banded_kernels as bk
     from fvens_tpu_torch.solver import givens_kernels as gk
     from fvens_tpu_torch.solver import graph_if
-    return dict(kernel_launches(), givens_column=gk.givens_column.launches,
+    return dict(kernel_launches(),
+                banded_bsgs_cluster=bk.bsgs_apply.cluster_launches,
+                givens_column=gk.givens_column.launches,
                 graph_if=graph_if.GraphControl.launches,
                 cond_set=graph_if.cond_set.launches)
 
@@ -1993,13 +2028,14 @@ def heat_state(mesh):
 def heat_path(dev):
     """Phase E: DiffusionFV on unit_square(n) quads, implicit to 1e-9 at n
     in HEAT_N (V = 1 blocks), on the gather path (bcsgs x3) and banded
-    (HEAT_BANDED: K1 for the matvec, the fused K1b for bsgs x6). At the
-    largest, n = 262,144 and blocked GMRES launches row_set once per
-    Krylov iteration. Each cycle of GMRES (one a step) is one K1 launch
-    for its residual and one per Krylov iteration; K1b one per Krylov
-    iteration, and on the blocked path one more per cycle (its trailing
-    apply). The banded runs take JAX_HEAT_BANDED_RECORD's steps, its
-    Krylov iterations within 1 and its L2 error to 1e-8 relative. The L2
+    (HEAT_BANDED: K1 for the matvec, K1b's cluster kernel for bsgs x6).
+    At the largest, n = 262,144 and blocked GMRES launches row_set once
+    per Krylov iteration. Each cycle of GMRES (one a step) is one K1
+    launch for its residual and one per Krylov iteration; the cluster
+    kernel one per Krylov iteration, and on the blocked path one more per
+    cycle (its trailing apply); the cooperative bsgs kernel none. The
+    banded runs take JAX_HEAT_BANDED_RECORD's steps, its Krylov
+    iterations within 1 and its L2 error to 1e-8 relative. The L2
     error order between the two n must lie in [1.9, 2.1] on each path.
     Returns (the launches of the largest gather solve, of the largest
     banded one)."""
@@ -2034,11 +2070,13 @@ def heat_path(dev):
             check(info.converged and np.isfinite(err),
                   f"the heat solve at n = {n} (banded {banded}) did not "
                   "converge")
-            kernels = ((its + steps, its + (steps if blocked else 0))
-                       if banded else (0, 0))
+            # the bsgs apply at 1x1 blocks takes the cluster kernel, never
+            # the cooperative one
+            kernels = ((its + steps, 0, its + (steps if blocked else 0))
+                       if banded else (0, 0, 0))
             check(launches["row_set"] == (its if blocked else 0)
-                  and (launches["banded_apply"],
-                       launches["banded_bsgs"]) == kernels,
+                  and (launches["banded_apply"], launches["banded_bsgs"],
+                       launches["banded_bsgs_cluster"]) == kernels,
                   f"heat launches {launches} for {its} Krylov iterations in "
                   f"{steps} steps (banded {banded}, blocked {blocked})")
             if banded:
@@ -3816,6 +3854,7 @@ def device_launches(dev) -> dict:
     from fvens_tpu_torch.solver import device_counts
     n = device_counts.read(dev)
     return {"banded_apply": n["banded_apply"], "banded_bsgs": n["bsgs_apply"],
+            "banded_bsgs_cluster": n["bsgs_cluster"],
             "row_set": n["row_set"], "givens_column": n["givens_column"],
             "graph_if": n["graph_if"], "set_if": n["set_if"],
             "cond_set": n["cond_set"]}
@@ -4562,15 +4601,20 @@ def main() -> int:
                                      cylinder_solvers(dev))
         b2, f2 = banded_checks(dev, "bench 160x80",
                                lambda mixed: bench_solver(dev, mixed=mixed))
-        b3, f3 = banded_checks(dev, f"heat {HEAT_N[-1]}x{HEAT_N[-1]}",
-                               heat_solvers(dev, HEAT_N[-1]), heat_state,
-                               phase_times=False)
-        brows, frows = brows + b2 + b3, frows + f2 + f3
+        brows, frows = brows + b2, frows + f2
+        for n in HEAT_N:
+            b3, f3 = banded_checks(dev, f"heat {n}x{n}", heat_solvers(dev, n),
+                                   heat_state, phase_times=False)
+            brows, frows = brows + b3, frows + f3
         rrows = rowset_checks(dev)
-        from fvens_tpu_torch.cases.profile_step import bsgs_phase_cost
+        from fvens_tpu_torch.cases.profile_step import (bsgs_phase_cost,
+                                                        bsgs_phase_cost_v1)
         phase_cost = {str(dt)[6:]: bsgs_phase_cost(dev, dt)
                       for dt in (torch.float32, torch.float64)}
-        print("banded_bsgs phase cost", json.dumps(phase_cost), flush=True)
+        phase_cost_v1 = {str(dt)[6:]: bsgs_phase_cost_v1(dev, dt)
+                         for dt in (torch.float32, torch.float64)}
+        print("banded_bsgs phase cost", json.dumps(dict(
+            phase_cost, v1=phase_cost_v1, card=CARD)), flush=True)
     paths = {}
     with phase("cylinder 640x320 solve (warm-up + timed)"):
         single_rep, paths["cylinder 640x320 banded"] = cylinder_path(dev)
@@ -4651,10 +4695,16 @@ def main() -> int:
     def v1_rows(rows, **want):
         """The heat equation's 1x1-block rows, f32 and f64."""
         return [{k: r.get(k) for k in (
-            "op", "K", "dtype", "NC", "max_abs_err", *keys, "bound_bytes",
-            "library_ms", "sequence_device_ms", "equal_to_sequence")
+            "op", "K", "dtype", "NC", "design", "max_abs_err", *keys,
+            "bound_bytes", "bound_share", "library_ms",
+            "sequence_device_ms", "equal_to_sequence", "cluster",
+            "clusters", "slice", "smem_bytes")
             if k in r} for r in rows if r["V"] == 1
             and all(r[k] == v for k, v in want.items())]
+    cooperative = {(r["NC"], r["dtype"]): r["device_ms"] for r in frows
+                   if r["V"] == 1 and r["design"] == "cooperative"}
+    hc = next(r for r in frows if r["V"] == 1 and r["design"] == "cluster"
+              and r["dtype"] == "float64" and r["NC"] == HEAT_N[-1] ** 2)
     measured = {
         "banded_apply": dict(
             max_abs_err=max(r["max_abs_err"] for r in brows),
@@ -4674,14 +4724,30 @@ def main() -> int:
             fused_over_sequence=pc["fused_over_sequence"],
             phases=pc["phases"],
             other_applies=[{k: r[k] for k in (
-                "path", "NC", "dtype", "device_ms", "sequence_device_ms",
-                "bound_ms", "bound_share", "fused_over_sequence")}
+                "path", "NC", "dtype", "design", "device_ms",
+                "sequence_device_ms", "bound_ms", "bound_share",
+                "fused_over_sequence")}
                 for r in frows if r is not pc],
             phase_cost=phase_cost,
-            v1=dict(rows=v1_rows(frows)),
+            v1=dict(rows=v1_rows(frows, design="cooperative")),
             shape=f"f32 bsgs apply, K={pc['K']}, {pc['sweeps']} sweeps, "
                   f"NC={pc['NC']}",
             library="no single PyTorch call computes the sweeps"),
+        "banded_bsgs_cluster": dict(
+            max_abs_err=max(r["max_abs_err"] for r in frows
+                            if r["design"] == "cluster"),
+            library_ms=None, **{k: hc[k] for k in keys},
+            sequence_device_ms=hc["sequence_device_ms"],
+            bound_share=hc["bound_share"],
+            cooperative_device_ms=cooperative[hc["NC"], hc["dtype"]],
+            plan={k: hc[k] for k in ("cluster", "clusters", "owned",
+                                     "slice", "smem_bytes")},
+            rows=v1_rows(frows, design="cluster"),
+            phase_cost=phase_cost_v1,
+            shape=f"f64 bsgs apply, 1x1 blocks, K={hc['K']}, "
+                  f"{hc['sweeps']} sweeps, NC={hc['NC']} (the heat "
+                  "equation's; its solve runs f64)",
+            library="no single PyTorch call runs the sweeps"),
         "row_set": dict(
             max_abs_err=max(r["max_abs_err"] for r in rrows),
             library_ms=None, **{k: rs[k] for k in keys},
@@ -4718,11 +4784,14 @@ def main() -> int:
             library="none: the torch form is two calls and sets no "
                     "graph condition"),
     }
-    # each kernel's launches from the 640x320 path of its slice that runs
-    # it: the banded kernels from the banded solve, row_set from the gather
+    # each kernel's launches from the path of its slice that runs it: the
+    # banded kernels from the 640x320 banded solve (the cluster kernel from
+    # the 512x512 banded heat solve), row_set from the 640x320 gather
     # solve, the Givens kernel and the IF nodes from the pipelined solve
     # (counted on the card: they run inside CUDA graphs)
     launches = dict(paths["cylinder 640x320 banded"],
+                    banded_bsgs_cluster=paths[f"{heat} banded"][
+                        "banded_bsgs_cluster"],
                     row_set=paths["cylinder 640x320 gather bsgs"]["row_set"],
                     givens_column=stepping["launches"]["givens_column"],
                     graph_if=stepping["launches"]["graph_if"],

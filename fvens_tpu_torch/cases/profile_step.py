@@ -1,7 +1,8 @@
 """Where one implicit step of a solve spends its time.
 
     python -m fvens_tpu_torch.cases.profile_step \
-        [--case bench|cylinder|cylinder-gather|rowset|slot-gather|kernels]
+        [--case bench|cylinder|cylinder-gather|rowset|slot-gather|kernels
+                |bsgs-v1]
         [--pc bsgs|bcsgs|ilu0|amg|bline|mf-jvp|mf-fd|bsgs-recycle]
         [--device cuda|cpu]
 
@@ -17,7 +18,9 @@ first without and then with a recycled space. `rowset` times the row_set kernel 
 (rowset_profile); `slot-gather` the gather path's slot gather alone, on
 the card or (`--device cpu`) on the CPU (slot_gather_profile). `kernels`
 times the three kernels on their main-path operators, in two rounds
-(kernel_times). The others
+(kernel_times); `bsgs-v1` the bsgs apply at 1x1 blocks in each of its
+designs on the heat equation's operators at 256x256 and 512x512, and a
+phase's fixed cost in each (bsgs_v1_times). The others
 run WARM_STEPS steps, once through the CUDA
 kernels and once through the plain banded twins (pallas=False; blocked
 GMRES's basis appends stay the row_set kernel, which, as in the JAX
@@ -70,6 +73,7 @@ from ..solver.banded import make_banded_bsgs
 from ..solver.linear import gmres, gmres_dr
 from ..solver.steady import banded_operators
 from . import bigmesh_case
+from . import model_problems as mp
 from .bench_case import BENCH_MESH, bench_solver
 from .casesolvers import build_space, initial_state
 
@@ -270,6 +274,114 @@ def bsgs_phase_cost(dev, dtype=torch.float32, S: int = 6) -> dict:
     rec["sequence_launch_ms"] = device_ms(
         lambda: bk.bsgs_sequence(dinv, dn, dms, S)(v)) / (S + 1)
     return rec
+
+
+def bsgs_phase_cost_v1(dev, dtype=torch.float32, S: int = 6) -> dict:
+    """bsgs_phase_cost at 1x1 blocks, for both designs of the apply: one
+    16-byte run of cells per SM (528 cells at f32), four bands at shifts
+    (-16, -1, 1, 16), each zero short of the wrap (as the heat equation's),
+    so that the cluster design takes it. Per design, device ms per phase
+    (t_S - t_0) / S: for the cooperative kernel a phase chained through
+    flags in device memory, for the cluster kernel a sweep and its cluster
+    barrier; and the sequence's per launch."""
+    NC = bk.bsgs_device_limits(dev)["n_blocks"] * bk.bsgs_align(dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+    dms = (-16, -1, 1, 16)
+    support = tuple((max(0, -d), min(NC, NC - d)) for d in dms)
+    dinv = torch.randn(1, 1, 1, NC, device=dev, dtype=dtype, generator=g)
+    dn = torch.randn(4, 1, 1, NC, device=dev, dtype=dtype, generator=g) / 8
+    for k, (lo, hi) in enumerate(support):
+        dn[k, ..., :lo] = 0
+        dn[k, ..., hi:] = 0
+    v = torch.randn(NC, 1, device=dev, dtype=dtype, generator=g)
+    rec = dict(NC=NC, V=1)
+    for design in bk.DESIGNS:
+        apps = {s: bk.BsgsApply(dinv, dn, dms, s, support, design=design)
+                for s in (0, S)}
+        t = {s: device_ms(lambda a=apps[s]: a(v)) for s in (0, S)}
+        rec[design] = dict(phase_ms=(t[S] - t[0]) / S, apply_ms=t[S],
+                           zero_sweeps_ms=t[0])
+        p = apps[S].plan
+        rec[design].update(
+            dict(cluster=p.cluster, clusters=p.clusters, slice=p.slice)
+            if design == "cluster" else dict(blocks=p.blocks))
+    rec["sequence_launch_ms"] = device_ms(
+        lambda: bk.bsgs_sequence(dinv, dn, dms, S)(v)) / (S + 1)
+    return rec
+
+
+def heat_bsgs_operands(dev, n: int, dtype):
+    """(dinv, dn, shifts, supports, sweeps) of the banded heat equation's
+    bsgs x6 apply on unit_square(n) at step 0 (f32: its mixed-precision
+    Krylov system)."""
+    solver, mesh = mp.heat_solver(dev, n, False, banded=True, pc="bsgs",
+                                  pc_sweeps=6,
+                                  mixed_precision=dtype == torch.float32)
+    u0 = torch.zeros((mesh.NC, 1), dtype=torch.float64, device=dev)
+    _, _, ops = solver.step_operators(mesh, u0, solver.cfg.cfl_init)
+    (dinv, _), (dn, dms) = bk.bsgs_bands(ops.Dinv, ops.DNbt, ops.bl.offsets)
+    return dinv, dn, dms, tuple(ops.bl.support), solver.lin.pc_sweeps
+
+
+# the bsgs apply at 1x1 blocks: by name, the BsgsApply keywords
+BSGS_V1_DESIGNS = {"cooperative": dict(design="cooperative"),
+                   "cluster": {}, "cluster 16": dict(cluster=16),
+                   "cluster 4": dict(cluster=4)}
+
+
+def bsgs_v1_times(dev, sizes=(256, 512)):
+    """Device ms (device_ms) of the bsgs apply at 1x1 blocks on the heat
+    equation's step-0 operators at each n of `sizes`, f32 and f64, in each
+    design of BSGS_V1_DESIGNS that has a plan (clusters of 4 do not fit
+    512x512 at f64) and in the seven-launch
+    sequence, in turns and again in reverse order (each number the lower
+    of the two rounds), every apply held equal to the sequence; with the
+    bound (bytes at 3.35 TB/s). Prints one "bsgs v1" JSON line each."""
+    limits = bk.bsgs_cluster_limits(dev)
+    for n in sizes:
+        for dtype in (torch.float32, torch.float64):
+            dinv, dn, dms, support, S = heat_bsgs_operands(dev, n, dtype)
+            g = torch.Generator(device=dev).manual_seed(n)
+            v = torch.randn(n * n, 1, device=dev, dtype=dtype, generator=g)
+            seq = bk.bsgs_sequence(dinv, dn, dms, S)
+            want = seq(v)
+            fns, rec = {}, dict(n=n, NC=n * n, dtype=str(dtype)[6:],
+                                sweeps=S, card=torch.cuda.get_device_name(dev),
+                                max_clusters=limits["max_clusters"])
+            for name, kw in BSGS_V1_DESIGNS.items():
+                if "cluster" in kw and bk.bsgs_cluster_plan(
+                        n * n, dms, support, S, dtype, limits,
+                        kw["cluster"]) is None:
+                    rec[f"{name} plan"] = "none: the card does not take it"
+                    continue
+                app = bk.BsgsApply(dinv, dn, dms, S, support, **kw)
+                if not torch.equal(app(v), want):
+                    raise RuntimeError(f"{name} differs from the sequence")
+                fns[name] = lambda a=app: a(v)
+                p = app.plan
+                rec[f"{name} plan"] = (
+                    dict(cluster=p.cluster, clusters=p.clusters,
+                         owned=p.owned, slice=p.slice,
+                         smem_bytes=p.smem_bytes)
+                    if app.design == "cluster" else
+                    dict(blocks=p.blocks, chunk=p.chunk, n_res=p.n_res))
+            fns["sequence"] = lambda: seq(v)
+            for order in (list(fns), list(fns)[::-1]):
+                for name in order:
+                    t = device_ms(fns[name])
+                    rec[f"{name} ms"] = min(rec.get(f"{name} ms", t), t)
+            # each band over its support, D^-1, v and the output once
+            rec["bound_bytes"] = (sum(hi - lo for lo, hi in support)
+                                  + 3 * n * n) * dn.element_size()
+            rec["bound_ms"] = rec["bound_bytes"] / 3.35e12 * 1e3
+            for name in fns:
+                rec[f"{name} bound_share"] = rec["bound_ms"] / rec[
+                    f"{name} ms"]
+            print("bsgs v1", json.dumps(rec), flush=True)
+    for dtype in (torch.float32, torch.float64):
+        print("bsgs v1 phase cost", json.dumps(dict(
+            dtype=str(dtype)[6:], **bsgs_phase_cost_v1(dev, dtype))),
+            flush=True)
 
 
 def _slot_gather_ways(mesh, x):
@@ -571,7 +683,7 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--case", choices=sorted(MESHES) + [
-        "rowset", "slot-gather", "kernels"], default="bench")
+        "rowset", "slot-gather", "kernels", "bsgs-v1"], default="bench")
     ap.add_argument("--pc", choices=sorted(GATHER), default="bsgs",
                     help="the preconditioner of --case cylinder-gather")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -588,6 +700,9 @@ def main():
         return
     if args.case == "kernels":
         kernel_times(dev)
+        return
+    if args.case == "bsgs-v1":
+        bsgs_v1_times(dev)
         return
     gather = args.case == "cylinder-gather"
     for pallas in (True,) if gather else (True, False):

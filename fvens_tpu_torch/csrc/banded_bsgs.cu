@@ -14,9 +14,11 @@
 // Blocks are VxV: V = 4 for the flow equations (fvens_banded_bsgs_f32/_f64),
 // V = 1 for the scalar diffusion (the _v1_ entry points). What follows was
 // designed and measured at V = 4; V = 1 runs the same kernel, with a row of
-// a vector one scalar. (At the 512x512 heat equation's 262,144 cells and
-// four bands its dense bands fit in half of L2, so the plan keeps no shared
-// tier there.)
+// a vector one scalar, only where the bands wrap or a cluster's slice does
+// not fit in shared memory (or where a caller forces it): at V = 1 the
+// solver takes banded_bsgs_cluster.cu, a design of its own for that shape
+// (independent thread-block clusters, no phases chained through device
+// memory; BsgsApply chooses once per operator).
 //
 // What bounds it. By bytes: each input read once and the output written
 // once, over each band's support (the two O-mesh seam bands hold one ring of
@@ -115,6 +117,7 @@
 #include <type_traits>
 
 #include "banded_block.cuh"
+#include "bulk_copy.cuh"
 
 // Mirrors the ctypes Structure `BsgsArgs` in solver/banded_kernels.py.
 struct BsgsArgs {
@@ -146,6 +149,11 @@ namespace {
 
 using fvens::kMaxBands;
 using fvens::Offsets;
+using fvens::bulk_copy;
+using fvens::mbar_expect_tx;
+using fvens::mbar_init;
+using fvens::mbar_wait;
+using fvens::smem_addr;
 // One block of 1,024 threads per SM (64 registers a thread), so that a
 // block gets all of its SM's shared memory.
 constexpr int kThreads = 1024;
@@ -168,7 +176,7 @@ struct Params {
   int lo[kMaxBands], hi[kMaxBands];
 };
 
-// ---- memory-ordering and asynchronous-copy primitives (PTX) ----
+// ---- memory-ordering primitives (PTX; the bulk copy: bulk_copy.cuh) ----
 
 __device__ __forceinline__ void store_release(unsigned long long* p,
                                               unsigned long long v) {
@@ -182,42 +190,6 @@ __device__ __forceinline__ unsigned long long load_acquire(
   asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
                : "memory");
   return v;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
-// aligned, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // ---- rows of the (nc, V) vectors: at V = 4 one 16-byte access (two at

@@ -22,7 +22,15 @@ signatures. Two kernels share one cell's arithmetic (csrc/banded_block.cuh):
     cells where it is nonzero (BandedStructure.support). It equals the
     seven-launch sequence of banded_apply (make_banded_bsgs_sequence) value
     for value: the same products summed in the same order, less the
-    skipped zero products.
+    skipped zero products;
+  - csrc/banded_bsgs_cluster.cu, the same apply at 1x1 blocks where no
+    band wraps (the heat equation's): one launch of independent
+    thread-block clusters, each computing its owned cells from a window
+    with a halo of sweeps * max|shift| cells held in the cluster's
+    distributed shared memory (bsgs_cluster_plan), one cluster barrier a
+    sweep and no phase chained through device memory. BsgsApply takes it
+    at V = 1 wherever the plan gives one, the cooperative kernel
+    otherwise; it too equals the sequence value for value.
 
 Both take V x V blocks for V in BLOCK_SIZES: 4 (the flow equations) and
 1 (the scalar diffusion), each its own instantiation of the kernels, picked
@@ -30,10 +38,12 @@ by the operands' V (`bands.shape[1]`); any other V raises ValueError.
 
 `banded_apply` and `bsgs_apply` launch their kernel for CUDA tensors and
 raise if the launch fails; for CPU tensors they take their plain PyTorch
-twins (`banded_apply_plain`, `bsgs_apply_plain`). `banded_apply.launches`
-and `bsgs_apply.launches` count kernel launches. The operator builders
-check the operands, look up the function and build the launch arguments
-once per Newton step, so that a call is one ctypes call and a torch.empty.
+twins (`banded_apply_plain`, `bsgs_apply_plain`). `banded_apply.launches`,
+`bsgs_apply.launches` (the cooperative kernel) and
+`bsgs_apply.cluster_launches` (the cluster kernel) count kernel launches.
+The operator builders check the operands, look up the function and build
+the launch arguments once per Newton step, so that a call is one ctypes
+call and a torch.empty.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ DTYPES = (torch.float32, torch.float64)
 
 _LIBS = {}                 # source name: (ctypes.CDLL, BuildInfo)
 _LIMITS = {}               # device index: the bsgs kernel's device limits
+_CLUSTER_LIMITS = {}       # device index: the cluster kernel's limits
 _WAITS = {}                # (device, NC, chunk, blocks, shifts, support):
                            # the bsgs kernel's waits and their device table
 
@@ -70,6 +81,21 @@ class BsgsArgs(ctypes.Structure):
                 ("sweeps", ctypes.c_int), ("blocks", ctypes.c_int),
                 ("chunk", ctypes.c_int), ("n_res", ctypes.c_int),
                 ("smem_bytes", ctypes.c_int), ("dense", ctypes.c_int),
+                ("offsets", ctypes.c_int * MAX_BANDS),
+                ("lo", ctypes.c_int * MAX_BANDS),
+                ("hi", ctypes.c_int * MAX_BANDS)]
+
+
+class BsgsClusterArgs(ctypes.Structure):
+    """The cluster kernel's launch arguments; mirrors `BsgsClusterArgs` in
+    csrc/banded_bsgs_cluster.cu."""
+    _fields_ = [("dinv", ctypes.c_void_p), ("dn", ctypes.c_void_p),
+                ("device", ctypes.c_int), ("nc", ctypes.c_int),
+                ("ld", ctypes.c_int), ("nbands", ctypes.c_int),
+                ("sweeps", ctypes.c_int), ("cluster", ctypes.c_int),
+                ("clusters", ctypes.c_int), ("owned", ctypes.c_int),
+                ("reach", ctypes.c_int), ("slice", ctypes.c_int),
+                ("smem_bytes", ctypes.c_int),
                 ("offsets", ctypes.c_int * MAX_BANDS),
                 ("lo", ctypes.c_int * MAX_BANDS),
                 ("hi", ctypes.c_int * MAX_BANDS)]
@@ -97,6 +123,18 @@ def _load(name: str):
                 fn.restype = ctypes.c_int
             lib.fvens_cuda_error_string.argtypes = [ctypes.c_int]
             lib.fvens_cuda_error_string.restype = ctypes.c_char_p
+        elif name == "banded_bsgs_cluster":
+            for dt in DTYPES:
+                fn = _entry(lib, "fvens_banded_bsgs_cluster", 1, dt)
+                fn.argtypes = [ctypes.POINTER(BsgsClusterArgs),
+                               ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            lib.fvens_bsgs_cluster_limits.argtypes = [ctypes.c_int,
+                                                      ctypes.c_void_p]
+            lib.fvens_bsgs_cluster_limits.restype = ctypes.c_int
+            lib.fvens_bsgs_cluster_error_string.argtypes = [ctypes.c_int]
+            lib.fvens_bsgs_cluster_error_string.restype = ctypes.c_char_p
         else:
             for fn in (_entry(lib, "fvens_banded_bsgs", V, dt)
                        for V in BLOCK_SIZES for dt in DTYPES):
@@ -124,6 +162,13 @@ def load_bsgs_library():
     BuildInfo."""
     _load("banded_bsgs")
     return _LIBS["banded_bsgs"][1]
+
+
+def load_bsgs_cluster_library():
+    """Build (at first use) and load csrc/banded_bsgs_cluster.cu. Returns
+    the BuildInfo."""
+    _load("banded_bsgs_cluster")
+    return _LIBS["banded_bsgs_cluster"][1]
 
 
 def _raise_launch(what: str, lib, errfn: str, err: int):
@@ -403,6 +448,159 @@ def bsgs_device_limits(device) -> dict:
     return _LIMITS[idx]
 
 
+# ---------------------------------------------------------------------------
+# the cluster design at 1x1 blocks (csrc/banded_bsgs_cluster.cu)
+# ---------------------------------------------------------------------------
+
+BSGS_CLUSTER_HEADER_BYTES = 16     # its dynamic shared memory before the
+                                   # planes (its mbarrier)
+BSGS_CLUSTER_SIZES = (8, 16)       # CTAs a cluster, tried in this order;
+                                   # 8 is portable, 16 where the card takes it
+
+
+@dataclasses.dataclass(frozen=True)
+class BsgsClusterPlan:
+    """How the cluster kernel splits NC cells: cluster g of `clusters` owns
+    [g * owned, min((g + 1) * owned, NC)) and computes its window, the
+    owned cells widened by halo = sweeps * reach on each side and clipped
+    to [0, NC) (`window`); the window's 16-byte runs are cut into `cluster`
+    slices of `slice` cells, one per CTA (`slices`), each holding its
+    slice's K band planes, and D^-1 v and two z buffers with `ghost` cells
+    on either side (the reach in 16-byte runs), in smem_bytes of shared
+    memory."""
+    NC: int
+    align: int             # cells in 16 bytes
+    sweeps: int
+    reach: int             # max_k |s_k|
+    cluster: int           # C, CTAs a cluster
+    clusters: int          # G
+    owned: int             # R
+    slice: int             # L, a whole number of 16-byte runs
+    smem_bytes: int
+
+    @property
+    def halo(self) -> int:
+        return self.sweeps * self.reach
+
+    @property
+    def ghost(self) -> int:
+        return -(-self.reach // self.align) * self.align
+
+    def window(self, g: int) -> tuple:
+        """Cluster g's window [w0, w1)."""
+        return (max(0, g * self.owned - self.halo),
+                min(self.NC, (g + 1) * self.owned + self.halo))
+
+    def slices(self, g: int) -> tuple:
+        """The C slices [s0, s1) of cluster g, CTA by CTA: the window's
+        16-byte runs from w0 rounded down, `slice` cells each (the last
+        ones shorter or empty)."""
+        w0, w1 = self.window(g)
+        b0 = w0 // self.align * self.align
+        end = -(-w1 // self.align) * self.align
+        return tuple((min(b0 + j * self.slice, end),
+                      min(b0 + (j + 1) * self.slice, end))
+                     for j in range(self.cluster))
+
+
+def bsgs_cluster_plan(NC: int, dms, support, sweeps: int, dtype, limits,
+                      cluster=None):
+    """The cluster kernel's plan for NC cells and K = len(dms) bands of 1x1
+    blocks with normalized shifts dms and supports `support` (None: every
+    cell), or None where it has none: where a band's reads would wrap (a
+    cell c of [lo_k, hi_k) with c + s_k outside [0, NC), as on the
+    O-meshes' seam bands), or where a slice does not fit in the shared
+    memory a block may opt in to. `limits` (bsgs_cluster_limits, or an
+    H100's numbers in the tests): "smem_optin", and "max_clusters", the
+    clusters of each size the card holds at once. C is the first of
+    BSGS_CLUSTER_SIZES the card takes and that fits, or `cluster`; G
+    fills the card once (at most one cluster per 16-byte run)."""
+    K = len(dms)
+    if support is None:
+        support = ((0, NC),) * K
+    if not 1 <= K <= MAX_BANDS or len(support) != K or sweeps < 0:
+        raise ValueError(f"no cluster plan for K={K}, {len(support)} "
+                         f"supports, sweeps={sweeps}")
+    if any(lo < hi and (lo + d < 0 or hi - 1 + d >= NC)
+           for d, (lo, hi) in zip(dms, support)):
+        return None
+    a, it = bsgs_align(dtype), _itemsize(dtype)
+    reach = max(abs(d) for d in dms)
+    for C in (BSGS_CLUSTER_SIZES if cluster is None else (cluster,)):
+        G = min(limits["max_clusters"].get(C, 0), -(-NC // a))
+        if G < 1:
+            continue
+        R = -(-(-(-NC // G)) // a) * a
+        plan = BsgsClusterPlan(NC=NC, align=a, sweeps=sweeps, reach=reach,
+                               cluster=C, clusters=-(-NC // R), owned=R,
+                               slice=0, smem_bytes=0)
+        span = 0
+        for g in range(plan.clusters):
+            w0, w1 = plan.window(g)
+            span = max(span, -(-w1 // a) * a - w0 // a * a)
+        L = -(-(-(-span // C)) // a) * a
+        smem = BSGS_CLUSTER_HEADER_BYTES + (
+            K * L + 3 * (L + 2 * plan.ghost)) * it
+        if smem <= limits["smem_optin"]:
+            return dataclasses.replace(plan, slice=L, smem_bytes=smem)
+    return None
+
+
+def bsgs_cluster_limits(device) -> dict:
+    """The cluster kernel's limits, read from the card once: the shared
+    memory a block may opt in to, its threads per block, its header
+    bytes, and max_clusters {C: the clusters of C CTAs the card holds at
+    once with that shared memory per CTA}."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _CLUSTER_LIMITS:
+        lib = _load("banded_bsgs_cluster")
+        out = (ctypes.c_int * 8)()
+        err = lib.fvens_bsgs_cluster_limits(idx, ctypes.addressof(out))
+        if err != 0:
+            _raise_launch("banded_bsgs_cluster", lib,
+                          "fvens_bsgs_cluster_error_string", err)
+        lim = dict(smem_optin=out[0], threads=out[1], header_bytes=out[2],
+                   max_clusters=dict(zip((1, 2, 4, 8, 16), out[3:8])))
+        if lim["header_bytes"] != BSGS_CLUSTER_HEADER_BYTES:
+            raise RuntimeError("banded_bsgs_cluster.cu and banded_kernels.py "
+                               f"differ on the kernel's layout: {lim}")
+        _CLUSTER_LIMITS[idx] = lim
+    return _CLUSTER_LIMITS[idx]
+
+
+DESIGNS = ("cluster", "cooperative")
+
+
+def bsgs_design(V: int, NC: int, dms, support, sweeps: int, dtype, limits,
+                design=None, cluster=None, coop_overrides=False):
+    """(design, cluster plan or None) of a bsgs apply: the cluster kernel
+    at V = 1 wherever bsgs_cluster_plan gives a plan, else the cooperative
+    kernel. `design` forces either ("cluster" raises ValueError where
+    there is no plan), `cluster` the cluster size, and the cooperative
+    plan's overrides (`coop_overrides`: smem_bytes or n_blocks given) the
+    cooperative kernel."""
+    if design not in (None, *DESIGNS):
+        raise ValueError(f"design must be one of {DESIGNS} or None, got "
+                         f"{design!r}")
+    if design == "cooperative" and cluster is not None or \
+            design == "cluster" and coop_overrides:
+        raise ValueError("cluster= forces the cluster design, smem_bytes= "
+                         "and n_blocks= the cooperative one")
+    want = design or ("cooperative" if coop_overrides else None)
+    if want == "cooperative" or V != 1:
+        if design == "cluster" or cluster is not None:
+            raise ValueError(f"the cluster design takes 1x1 blocks, got "
+                             f"{V}x{V}")
+        return "cooperative", None
+    plan = bsgs_cluster_plan(NC, dms, support, sweeps, dtype, limits,
+                             cluster)
+    if plan is None and (design == "cluster" or cluster is not None):
+        raise ValueError(f"no cluster plan for NC={NC}, shifts {dms} "
+                         f"(a band wraps, or a slice outgrows shared memory)")
+    return ("cooperative", None) if plan is None else ("cluster", plan)
+
+
 def bsgs_apply_plain(dinv, dn, dms, sweeps, v):
     """Plain PyTorch twin of the fused kernel: banded.make_banded_bsgs's
     arithmetic on dinv (1, V, V, NC), dn (K, V, V, NC), v (NC, V)."""
@@ -429,33 +627,77 @@ def _check_bsgs(dinv, dn, dms, sweeps, support):
 
 class BsgsApply:
     """The bsgs apply with D^-1, D^-1 N, shifts and sweeps fixed: operands
-    checked, launch planned, block waits looked up and scratch and flags
-    allocated once; a call checks v and makes one launch (on CPU tensors:
-    the twin). The scratch and the flags are shared by the calls, so the
-    calls of one operator must be ordered by one stream (the solver's: the
-    current stream), as they are. The flags count the phases done on the
-    card and are never reset, so a call captured in a CUDA graph stays
-    right at every replay.
+    checked, the design chosen and the launch planned once; a call checks
+    v and makes one launch (on CPU tensors: the twin).
+
+    Two designs (bsgs_design; `design` and `plan` say which ran): at 1x1
+    blocks, where no band wraps and the slices fit, the cluster kernel
+    (csrc/banded_bsgs_cluster.cu, BsgsClusterPlan), which keeps no state
+    between calls; otherwise the cooperative kernel (csrc/banded_bsgs.cu,
+    BsgsPlan), with block waits looked up and scratch and flags allocated
+    once. Its scratch and flags are shared by the calls, so the calls of
+    one operator must be ordered by one stream (the solver's: the current
+    stream), as they are. The flags count the phases done on the card and
+    are never reset, so a call captured in a CUDA graph stays right at
+    every replay.
 
     support: per band the (lo, hi) cell range outside which its blocks are
-    zero (BandedStructure.support; default: all cells); the kernel skips a
-    band outside it, and keeps only the bands that span most cells
-    (bsgs_dense_bands) on chip, and none where they fit in L2
-    (bsgs_bands_fit_l2). smem_bytes and n_blocks override the shared
-    memory per block and the grid in the plan (tests force the residency
-    cases with them)."""
+    zero (BandedStructure.support; default: all cells); both kernels skip
+    a band outside it; the cooperative one keeps only the bands that span
+    most cells (bsgs_dense_bands) on chip, and none where they fit in L2
+    (bsgs_bands_fit_l2). `design` ("cluster" or "cooperative") forces a
+    design and `cluster` the cluster size; smem_bytes and n_blocks
+    override the shared memory per block and the grid in the cooperative
+    plan (tests force the residency cases with them) and so choose it."""
 
     def __init__(self, dinv, dn, dms, sweeps: int, support=None,
-                 smem_bytes=None, n_blocks=None):
+                 smem_bytes=None, n_blocks=None, design=None, cluster=None):
         self.V = V = _check_bsgs(dinv, dn, dms, sweeps, support)
         self.dinv, self.dn, self.dms, self.sweeps = dinv, dn, tuple(dms), \
             sweeps
         self.NC, self.dtype, self.device = dn.shape[3], dn.dtype, dn.device
+        self.design, self.plan = "plain", None
         if self.device.type != "cuda":
             return
         self.support = (tuple((0, self.NC) for _ in self.dms)
                         if support is None else
                         tuple((int(lo), int(hi)) for lo, hi in support))
+        coop = smem_bytes is not None or n_blocks is not None
+        self.design, self.plan = bsgs_design(
+            V, self.NC, self.dms, self.support, sweeps, self.dtype,
+            bsgs_cluster_limits(self.device)
+            if V == 1 and design != "cooperative" and not coop else None,
+            design, cluster, coop)
+        # the bands' planes 16-byte aligned for the TMA copies: a padded
+        # copy where NC or the tensor's address is not
+        a = bsgs_align(self.dtype)
+        self._ld = ld = -(-self.NC // a) * a
+        self._dn = dn
+        if ld != self.NC or dn.data_ptr() % 16:
+            self._dn = torch.zeros(dn.shape[:3] + (ld,), dtype=self.dtype,
+                                   device=self.device)
+            self._dn[..., :self.NC] = dn
+        offsets = (ctypes.c_int * MAX_BANDS)(*self.dms)
+        lo = (ctypes.c_int * MAX_BANDS)(*(lo for lo, _ in self.support))
+        hi = (ctypes.c_int * MAX_BANDS)(*(hi for _, hi in self.support))
+        if self.design == "cluster":
+            p = self.plan
+            self._fn = _entry(_load("banded_bsgs_cluster"),
+                              "fvens_banded_bsgs_cluster", V, self.dtype)
+            self._args = BsgsClusterArgs(
+                dinv=dinv.data_ptr(), dn=self._dn.data_ptr(),
+                device=self.device.index, nc=self.NC, ld=ld,
+                nbands=len(self.dms), sweeps=sweeps, cluster=p.cluster,
+                clusters=p.clusters, owned=p.owned, reach=p.reach,
+                slice=p.slice, smem_bytes=p.smem_bytes, offsets=offsets,
+                lo=lo, hi=hi)
+        else:
+            self._plan_cooperative(dinv, smem_bytes, n_blocks, offsets, lo,
+                                   hi)
+        self._args_ref = ctypes.byref(self._args)
+
+    def _plan_cooperative(self, dinv, smem_bytes, n_blocks, offsets, lo, hi):
+        V, ld = self.V, self._ld
         dense = bsgs_dense_bands(self.support, self.NC)
         lim = bsgs_device_limits(self.device)
         if smem_bytes is None:
@@ -470,15 +712,6 @@ class BsgsApply:
                                                self.dms, self.support)
         # one thread spins on each
         assert max(map(len, self.waits)) <= lim["threads"]
-        # the bands' planes 16-byte aligned for the TMA copies: a padded
-        # copy where NC or the tensor's address is not
-        a = bsgs_align(self.dtype)
-        ld = -(-self.NC // a) * a
-        self._dn = dn
-        if ld != self.NC or dn.data_ptr() % 16:
-            self._dn = torch.zeros(dn.shape[:3] + (ld,), dtype=self.dtype,
-                                   device=self.device)
-            self._dn[..., :self.NC] = dn
         self._fn = _entry(_load("banded_bsgs"), "fvens_banded_bsgs", V,
                           self.dtype)
         # dv and z, each 16-byte aligned (at V = 1 a buffer of NC values
@@ -492,14 +725,11 @@ class BsgsApply:
             dv=self._scratch[0].data_ptr(), z=self._scratch[1].data_ptr(),
             flags=self._flags.data_ptr(), waits=self._waits.data_ptr(),
             device=self.device.index, nc=self.NC, ld=ld,
-            nbands=len(self.dms), sweeps=sweeps, blocks=p.blocks,
+            nbands=len(self.dms), sweeps=self.sweeps, blocks=p.blocks,
             chunk=p.chunk, n_res=p.n_res,
             smem_bytes=p.smem_bytes,
             dense=sum(1 << k for k, d in enumerate(dense) if d),
-            offsets=(ctypes.c_int * MAX_BANDS)(*self.dms),
-            lo=(ctypes.c_int * MAX_BANDS)(*(lo for lo, _ in self.support)),
-            hi=(ctypes.c_int * MAX_BANDS)(*(hi for _, hi in self.support)))
-        self._args_ref = ctypes.byref(self._args)
+            offsets=offsets, lo=lo, hi=hi)
 
     def __call__(self, v):
         _check_vec("v", v, self.NC, self.V)
@@ -510,6 +740,14 @@ class BsgsApply:
         out = torch.empty_like(v)
         err = self._fn(self._args_ref, v.data_ptr(), out.data_ptr(),
                        _stream(self.device))
+        if self.design == "cluster":
+            if err != 0:
+                _raise_launch("banded_bsgs_cluster",
+                              _LIBS["banded_bsgs_cluster"][0],
+                              "fvens_bsgs_cluster_error_string", err)
+            bsgs_apply.cluster_launches += 1
+            device_counts.count("bsgs_cluster", self.device)
+            return out
         if err != 0:
             _raise_launch("banded_bsgs", _LIBS["banded_bsgs"][0],
                           "fvens_bsgs_error_string", err)
@@ -519,19 +757,21 @@ class BsgsApply:
 
 
 def bsgs_apply(dinv, dn, dms, sweeps: int, v, support=None,
-               smem_bytes=None, n_blocks=None):
+               smem_bytes=None, n_blocks=None, design=None, cluster=None):
     """The bsgs preconditioner apply z = D^-1 v, then `sweeps` times
-    z <- D^-1 v - sum_k (D^-1 N)_k z_(+d_k): one launch of the fused CUDA
-    kernel on CUDA tensors, its plain twin on CPU tensors. dinv (1, V, V,
-    NC) and dn (K, V, V, NC) as bsgs_bands gives them, v (NC, V); support
-    as BsgsApply takes it."""
+    z <- D^-1 v - sum_k (D^-1 N)_k z_(+d_k): one launch of a CUDA kernel
+    (BsgsApply's design) on CUDA tensors, its plain twin on CPU tensors.
+    dinv (1, V, V, NC) and dn (K, V, V, NC) as bsgs_bands gives them, v
+    (NC, V); support, the plan's overrides and the design as BsgsApply
+    takes them."""
     if v.dtype != dn.dtype:
         raise TypeError("dinv, dn and v must share one dtype")
     return BsgsApply(dinv, dn, dms, sweeps, support, smem_bytes,
-                     n_blocks)(v)
+                     n_blocks, design, cluster)(v)
 
 
-bsgs_apply.launches = 0
+bsgs_apply.launches = 0            # the cooperative kernel's
+bsgs_apply.cluster_launches = 0    # the cluster kernel's
 
 
 # ---------------------------------------------------------------------------

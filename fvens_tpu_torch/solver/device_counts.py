@@ -20,11 +20,13 @@ import contextlib
 
 import torch
 
-# "graph_if" counts the IF nodes reached (live or dead), "set_if" the
+# "bsgs_apply" counts the cooperative bsgs kernel's launches,
+# "bsgs_cluster" the cluster kernel's (banded_kernels.BsgsApply.design);
+# "graph_if" the IF nodes reached (live or dead), "set_if" the
 # set-condition kernels of generic nodes, "cond_set" the compare-and-set
 # kernel's launches (solver/graph_if.py)
 NAMES = ("banded_apply", "bsgs_apply", "row_set", "givens_column",
-         "graph_if", "set_if", "cond_set")
+         "graph_if", "set_if", "cond_set", "bsgs_cluster")
 
 _COUNTS = {}               # device index: int64 tensor (len(NAMES),)
 _KEPT = {}                 # every counter made, counting or not

@@ -19,7 +19,25 @@ write three buffers in turn (dv, then z and out by the parity rule). Here:
     (the same products in the same order, slice by slice). With waits cut
     to deps (without the reverse set) a block may overwrite z that a
     neighbour has yet to read, and the simulator sees it.
+
+The cluster design at 1x1 blocks (csrc/banded_bsgs_cluster.cu) has a plan
+of its own (bsgs_cluster_plan): each cluster of C CTAs computes its owned
+cells from a window widened by sweeps * max|shift| cells, cut into C
+16-byte-aligned slices. Here:
+  - the plan on unit_square(16), (64), (256) and (512) with an H100's
+    limits (as the card reported them): windows, slices, shared memory;
+    it refuses the O-mesh (whose seam bands wrap), a synthetic wrapping
+    band, slices beyond the shared memory and cluster sizes the card does
+    not take; the design BsgsApply takes from it (bsgs_design);
+  - a cluster schedule simulator in plain PyTorch: clusters in seeded
+    random order, each cluster's sweeps in lock-step on per-CTA slice
+    buffers (D^-1 v and two z buffers, NaN outside the window), each CTA
+    pushing the cells near its slice's ends into its neighbours' ghost
+    cells by the kernel's index rule. It equals bsgs_apply_plain bit for
+    bit at f64; with the halo cut by one shift, NaN reaches the output.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -34,6 +52,13 @@ from fvens_tpu_torch.solver import banded_kernels as bk
 # less the 1 KB the system keeps and the 32 KB left to L1
 H100_SMEM = 233_472 - 1024 - bk.BSGS_L1_BYTES
 H100_SMS = 132
+
+
+# what an NVIDIA H100 80GB HBM3 reported for the cluster kernel
+# (bsgs_cluster_limits: the opt-in shared memory, and the clusters of each
+# size cudaOccupancyMaxActiveClusters gives at it)
+H100_CLUSTER_LIMITS = dict(smem_optin=232_448,
+                           max_clusters={1: 132, 2: 66, 4: 30, 8: 15, 16: 7})
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +79,7 @@ def heat_structures():
     """{n: (NC, normalized shifts, supports)} of the heat equation's
     unit_square(n) (1x1 blocks)."""
     out = {}
-    for n in (16, 512):
+    for n in (16, 64, 256, 512):
         _, mesh = mp.heat_solver("cpu", n, False, banded=True)
         bl = tb.banded_structure(mesh)
         out[n] = (mesh.NC, tb._norm_offsets(bl.offsets, mesh.NC), bl.support)
@@ -376,3 +401,265 @@ def test_schedule_without_the_reverse_waits_differs():
             for w in (waits, deps) for seed in range(8)]
     assert all(same[:8])
     assert not all(same[8:])
+
+
+# ---------------------------------------------------------------------------
+# the cluster design at 1x1 blocks
+# ---------------------------------------------------------------------------
+
+def _check_cluster_plan(p, NC, dms, sweeps, dtype):
+    """The plan's windows and slices as the kernel computes them."""
+    a = bk.bsgs_align(dtype)
+    h = max(abs(d) for d in dms)
+    assert (p.NC, p.align, p.sweeps, p.reach) == (NC, a, sweeps, h)
+    assert p.halo == sweeps * h
+    assert p.owned % a == 0 and p.slice % a == 0
+    assert p.clusters == -(-NC // p.owned)
+    assert (p.clusters - 1) * p.owned < NC <= p.clusters * p.owned
+    assert p.ghost % a == 0 and h <= p.ghost < h + a
+    assert p.smem_bytes == 16 + (len(dms) * p.slice + 3 * (
+        p.slice + 2 * p.ghost)) * bk._itemsize(dtype) <= 232_448
+    for g in range(p.clusters):
+        w0, w1 = p.window(g)
+        assert (w0, w1) == (max(0, g * p.owned - sweeps * h),
+                            min(NC, (g + 1) * p.owned + sweeps * h))
+        sl = p.slices(g)
+        assert len(sl) == p.cluster
+        assert sl[0][0] == w0 // a * a
+        assert sl[-1][1] == -(-w1 // a) * a
+        for j, (s0, s1) in enumerate(sl):
+            assert s0 % a == 0 and s1 % a == 0 and 0 <= s1 - s0 <= p.slice
+            assert j == 0 or s0 == sl[j - 1][1]
+            assert s1 - s0 == p.slice or s1 == sl[-1][1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [16, 64, 256, 512])
+def test_cluster_plan_on_the_heat_equation(heat_structures, n, dtype):
+    """unit_square(n), shifts (-n, -1, 1, n), no band wraps: the plan takes
+    clusters of 8 (the first size the card takes), at most as many as the
+    card holds at once (15), for sweeps 0-6. At 512x512 and 6 sweeps each owns
+    17,480 cells at f32 (17,478 at f64), a window of at most 23,624, so
+    2,956 (2,954) cells a CTA, with 512 ghosts on either side of its D^-1 v
+    and z buffers, in 95,072 (190,016) bytes of shared memory."""
+    NC, dms, support = heat_structures[n]
+    for sweeps in range(7):
+        p = bk.bsgs_cluster_plan(NC, dms, support, sweeps, dtype,
+                                 H100_CLUSTER_LIMITS)
+        assert p is not None and p.cluster == 8
+        assert p.clusters <= min(15, -(-NC // bk.bsgs_align(dtype)))
+        assert p.clusters == 15 or n < 512
+        _check_cluster_plan(p, NC, dms, sweeps, dtype)
+    if n == 512:
+        f32 = dtype == torch.float32
+        assert (p.owned, p.slice, p.smem_bytes) == (
+            (17_480, 2_956, 95_072) if f32 else (17_478, 2_954, 190_016))
+
+
+def test_cluster_plan_refuses_wrapping_bands(omesh_structures):
+    """The 160x80 O-mesh: its seam bands read across the wrap, so there is
+    no cluster plan (the cooperative kernel runs it). A synthetic band
+    that reaches the wrap by one cell has none either; one short of it
+    does."""
+    NC, dms, support = omesh_structures[(160, 80)]
+    assert bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float64,
+                                H100_CLUSTER_LIMITS) is None
+    NC, lim = 1000, H100_CLUSTER_LIMITS
+    for sup, ok in ((((5, NC), (0, NC - 3)), True),
+                    (((4, NC), (0, NC - 3)), False),
+                    (((5, NC), (0, NC - 2)), False),
+                    (((5, NC), (10, 10)), True),       # an empty band
+                    (None, False)):                   # every cell
+        p = bk.bsgs_cluster_plan(NC, (-5, 3), sup, 6, torch.float64, lim)
+        assert (p is not None) == ok, sup
+
+
+def test_cluster_plan_refuses_what_does_not_fit(heat_structures):
+    """No plan where a slice outgrows the shared memory a block may opt in
+    to, or for a cluster size the card does not take; a forced size it
+    takes is kept; at 512x512 clusters of 16 (7 of them) fit too."""
+    NC, dms, support = heat_structures[512]
+    lim = dict(H100_CLUSTER_LIMITS, smem_optin=100_000)
+    assert bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float64,
+                                lim) is None
+    assert bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float32,
+                                lim) is not None
+    none16 = dict(H100_CLUSTER_LIMITS, max_clusters={8: 15, 16: 0})
+    assert bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float64, none16,
+                                cluster=16) is None
+    p = bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float64,
+                             H100_CLUSTER_LIMITS, cluster=16)
+    assert (p.cluster, p.clusters) == (16, 7)
+    _check_cluster_plan(p, NC, dms, 6, torch.float64)
+    # 2 CTAs a cluster: 66 clusters of 3,972 cells and their 6,144-cell
+    # halo do not fit at f64
+    assert bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float64,
+                                H100_CLUSTER_LIMITS, cluster=2) is None
+
+
+def test_bsgs_design(heat_structures, omesh_structures):
+    """The cluster design at 1x1 blocks where the plan gives one, else the
+    cooperative one; design= forces either (the cluster design raises where
+    it has no plan), smem_bytes= / n_blocks= choose the cooperative one,
+    and contradictory or unknown choices raise."""
+    NC, dms, support = heat_structures[64]
+    lim, f64 = H100_CLUSTER_LIMITS, torch.float64
+
+    def design(V=1, sup=support, **kw):
+        return bk.bsgs_design(V, NC, dms, sup, 6, f64, lim, **kw)
+    d, p = design()
+    assert d == "cluster" and p == bk.bsgs_cluster_plan(NC, dms, support, 6,
+                                                        f64, lim)
+    assert design(cluster=16)[1].cluster == 16
+    assert design(design="cooperative") == ("cooperative", None)
+    assert design(coop_overrides=True) == ("cooperative", None)
+    assert design(V=4) == ("cooperative", None)
+    wrap = ((0, NC),) * 4
+    assert design(sup=wrap) == ("cooperative", None)
+    for kw in (dict(sup=wrap, design="cluster"), dict(V=4, design="cluster"),
+               dict(design="cooperative", cluster=8),
+               dict(design="cluster", coop_overrides=True),
+               dict(design="fused")):
+        with pytest.raises(ValueError):
+            design(**kw)
+
+
+def _cells(a, b):
+    """The cells [a, b), none where b <= a."""
+    return torch.arange(a, max(a, b))
+
+
+def _push_ghosts(buf, j, r0, y, L, G):
+    """The kernel's push_ghost: cells r0 of CTA j's slice (values y) into
+    buf's ghosts of the CTAs whose ghost regions hold them (rank j - d at
+    r0 + d L where r0 + (d - 1) L < G, rank j + d at r0 - d L where
+    r0 >= d L - G)."""
+    C = buf.shape[0]
+    d = 1
+    while (d - 1) * L < G:
+        m = r0 + (d - 1) * L < G
+        if j - d >= 0:
+            buf[j - d, G + r0[m] + d * L] = y[m]
+        m = r0 >= d * L - G
+        if j + d < C:
+            buf[j + d, G + r0[m] - d * L] = y[m]
+        d += 1
+
+
+def simulate_clusters(dinv, dn, dms, support, sweeps, v, plan, seed,
+                      halo=None):
+    """The cluster kernel's schedule in plain PyTorch (1x1 blocks): the
+    clusters in a seeded random order, each on buffers of its own: per
+    CTA, D^-1 v and two z buffers of its slice with plan.ghost ghost cells
+    on either side, NaN until written. D^-1 v over the window, each CTA
+    over its slice and ghosts; sweep s (the CTAs in a random order, in
+    lock-step: all read buffer s - 1) on the
+    cells of the trapezoid [g R - (S - s) h, (g + 1) R + (S - s) h),
+    clipped to the window, with banded.bsgs_sweeps's arithmetic (band k
+    skipped outside its support), every read in the CTA's own buffer;
+    each CTA writes its cells to buffer s and pushes them into the other
+    CTAs' ghosts as the kernel does (_push_ghosts); the last sweep writes
+    the owned cells. `halo` replaces the window's sweeps * h."""
+    NC = v.shape[0]
+    S, h, C, L, R, G = (plan.sweeps, plan.reach, plan.cluster, plan.slice,
+                        plan.owned, plan.ghost)
+    if halo is not None:
+        plan = dataclasses.replace(plan, sweeps=1, reach=halo)
+    nan = float("nan")
+    out = torch.full((NC,), nan, dtype=v.dtype)
+    g_rng = np.random.default_rng(seed)
+    for g in g_rng.permutation(plan.clusters).tolist():
+        w0, w1 = plan.window(g)
+        slices = plan.slices(g)
+        own0, own1 = g * R, min(NC, (g + 1) * R)
+        bufs = torch.full((3, C, L + 2 * G), nan, dtype=v.dtype)
+        for j, (s0, s1) in enumerate(slices):
+            c = _cells(max(s0 - G, w0), min(s0 + L + G, w1))
+            bufs[0, j, G + c - s0] = tb._block_mv(dinv[0][:, :, c],
+                                                  v.T[:, c])[0]
+        if S == 0:
+            for j, (s0, s1) in enumerate(slices):
+                c = _cells(max(s0, own0), min(s1, own1))
+                out[c] = bufs[0, j, G + c - s0]
+            continue
+        for s in range(1, S + 1):
+            src = bufs[0 if s == 1 else 1 + (s - 1) % 2]
+            dst = bufs[1 + s % 2]
+            shrink = (S - s) * h
+            for j in g_rng.permutation(C).tolist():
+                s0, s1 = slices[j]
+                c = _cells(max(s0, w0, own0 - shrink),
+                           min(s1, w1, own1 + shrink))
+                if not len(c):
+                    continue
+                acc = bufs[0, j, G + c - s0].clone()
+                for k, (d, (lo, hi)) in enumerate(zip(dms, support)):
+                    m = (c >= lo) & (c < hi)
+                    x = src[j, G + c[m] - s0 + d]
+                    acc[m] = acc[m] - tb._block_mv(dn[k][:, :, c[m]],
+                                                   x[None])[0]
+                if s < S:
+                    dst[j, G + c - s0] = acc
+                    _push_ghosts(dst, j, c - s0, acc, L, G)
+                else:
+                    out[c] = acc
+    return out[:, None]
+
+
+def _local_case(name, heat_structures):
+    """(NC, shifts, supports) of a simulated 1x1 case: heat 16, or a
+    synthetic local structure (shifts of either sign, one zero, a
+    duplicate, supports short of the wrap and some narrower)."""
+    if name == "heat 16":
+        return heat_structures[16]
+    NC = 997
+    dms = (-37, -5, 0, 3, 41, 3)
+    support = ((37, NC), (5, 900), (0, NC), (100, 400), (0, NC - 41),
+               (0, NC - 3))
+    return NC, dms, support
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 2, 6])
+@pytest.mark.parametrize("name", ["heat 16", "synthetic"])
+def test_cluster_schedule_equals_the_twin(heat_structures, name, sweeps):
+    NC, dms, support = _local_case(name, heat_structures)
+    dinv, dn, v = _inputs(NC, len(dms), seed=sweeps, support=support, V=1)
+    p = bk.bsgs_cluster_plan(NC, dms, support, sweeps, torch.float64,
+                             H100_CLUSTER_LIMITS)
+    assert p.clusters > 1
+    want = bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)
+    for seed in range(2):
+        z = simulate_clusters(dinv, dn, dms, support, sweeps, v, p, seed)
+        assert torch.equal(z, want), seed
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 16])
+def test_cluster_schedule_other_sizes(heat_structures, cluster):
+    """Clusters of 2, 4 and 16 CTAs (slices shorter than a shift: reads
+    two and more CTAs away) equal the twin too."""
+    NC, dms, support = _local_case("synthetic", heat_structures)
+    dinv, dn, v = _inputs(NC, len(dms), seed=5, support=support, V=1)
+    p = bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float64,
+                             H100_CLUSTER_LIMITS, cluster=cluster)
+    assert p.cluster == cluster
+    want = bk.bsgs_apply_plain(dinv, dn, dms, 6, v)
+    assert torch.equal(simulate_clusters(dinv, dn, dms, support, 6, v, p, 0),
+                       want)
+
+
+@pytest.mark.parametrize("name", ["heat 16", "synthetic"])
+def test_cluster_schedule_with_a_short_halo_differs(heat_structures, name):
+    """With the window widened by (sweeps - 1) * h in place of sweeps * h,
+    the first sweep reads outside the cluster's slices: NaN reaches the
+    owned cells next to another cluster's."""
+    NC, dms, support = _local_case(name, heat_structures)
+    dinv, dn, v = _inputs(NC, len(dms), seed=9, support=support, V=1)
+    p = bk.bsgs_cluster_plan(NC, dms, support, 6, torch.float64,
+                             H100_CLUSTER_LIMITS)
+    want = bk.bsgs_apply_plain(dinv, dn, dms, 6, v)
+    assert torch.equal(simulate_clusters(dinv, dn, dms, support, 6, v, p, 0),
+                       want)
+    z = simulate_clusters(dinv, dn, dms, support, 6, v, p, 0,
+                          halo=5 * p.reach)
+    assert not torch.equal(z, want)
+    assert bool(z.isnan().any())

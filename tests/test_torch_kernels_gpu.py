@@ -2,7 +2,11 @@
 givens_column, the compare-and-set kernel) against their plain PyTorch
 twins, on the card. The banded kernels at both block sizes they are built
 for: the flow equations' 4x4 blocks and the scalar diffusion's 1x1 blocks
-(the `_v1` tests, on the heat equation's operators and on random ones).
+(the `_v1` tests, on the heat equation's operators and on random ones);
+at 1x1 blocks the bsgs apply's cluster design (csrc/banded_bsgs_cluster.cu:
+the `cluster` tests, on the heat equation's operators, on random local
+structures, at every cluster size the card takes, captured in a CUDA
+graph) beside the cooperative one, forced.
 The Givens kernel and the compare-and-set kernel bit for bit; a captured
 chain of Givens updates that decide each other's IF nodes; the
 device-form step captured as a CUDA graph with IF nodes
@@ -18,8 +22,9 @@ not installed:
 
 Tolerances: banded_apply and the fused bsgs apply f32 to 1e-5 of max|y|,
 f64 to 1e-12 of max|y| of their twins (the kernels fuse multiply-adds and
-sum bands in another order than the twins); the fused bsgs apply equals the
-seven-launch banded_apply sequence value for value (both run the cell
+sum bands in another order than the twins); the fused bsgs apply, in
+either design, equals the seven-launch banded_apply sequence value for
+value (all run the cell
 arithmetic of csrc/banded_block.cuh); row_set bit for bit (one true IEEE
 division per element, as the twin).
 """
@@ -245,9 +250,13 @@ def test_bsgs_fused_equals_sequence_v1(cuda, dtype, NC):
             zs = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
             zp = bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)
             f0, n0 = bk.bsgs_apply.launches, bk.banded_apply.launches
+            c0 = bk.bsgs_apply.cluster_launches
             z = bk.bsgs_apply(dinv, dn, dms, sweeps, v)
             torch.cuda.synchronize()
-            assert bk.bsgs_apply.launches == f0 + 1
+            # one launch of either design (at NC = 1 every shift is 0: no
+            # band wraps, so the cluster design)
+            assert (bk.bsgs_apply.launches - f0
+                    + bk.bsgs_apply.cluster_launches - c0) == 1
             assert bk.banded_apply.launches == n0
             assert z.shape == (NC, 1) and z.dtype == dtype and z.is_cuda
             assert torch.equal(z, zs), (K, sweeps)
@@ -450,6 +459,156 @@ def test_bsgs_refuses_bad_input(cuda):
     assert bk.bsgs_apply.launches == n0
     z = bk.bsgs_apply(dinv, dn, dms, 6, v)                   # still launches
     assert torch.equal(z, bk.bsgs_sequence(dinv, dn, dms, 6)(v))
+
+
+def _local_inputs(dev, dtype, NC, K, reach, seed=0):
+    """A random local structure of 1x1 blocks, as the heat equation's is:
+    K shifts in [-reach, reach] (the first -reach, the largest), each
+    band's support short of the wrap and some narrower still, D^-1 N zero
+    outside it; D^-1 and v random."""
+    g = np.random.default_rng(seed + 7 * NC + K)
+    dms = [-reach] + [int(d) for d in g.integers(-reach, reach + 1, K - 1)]
+    support = []
+    for d in dms:
+        lo, hi = max(0, -d), min(NC, NC - d)
+        if g.random() < 0.3 and hi - lo > 2:
+            lo, hi = sorted(int(x) for x in g.integers(lo, hi + 1, 2))
+        support.append((lo, hi))
+    dinv = g.standard_normal((1, 1, 1, NC))
+    dn = g.standard_normal((K, 1, 1, NC)) * (0.5 / K)
+    for k, (lo, hi) in enumerate(support):
+        dn[k, :, :, :lo] = 0
+        dn[k, :, :, hi:] = 0
+    v = g.standard_normal((NC, 1))
+
+    def put(a):
+        return torch.from_numpy(a).to(dev, dtype)
+    return put(dinv), put(dn), tuple(dms), tuple(support), put(v)
+
+
+def _heat_bsgs(dev, dtype, n):
+    """(dinv, dn, shifts, supports) of the heat equation's bsgs apply on
+    unit_square(n), step 0."""
+    _, ops = _heat_ops(dev, dtype, n)
+    (dinv, _), (dn, dms) = bk.bsgs_bands(ops.Dinv, ops.DNbt, ops.bl.offsets)
+    return dinv, dn, dms, tuple(ops.bl.support)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [256, 512])
+def test_bsgs_cluster_equals_sequence_on_heat(cuda, dtype, n):
+    """The heat equation's step-0 operators at 256x256 and 512x512: the
+    apply takes the cluster design (no band wraps), one launch of it, equal
+    to the seven-launch sequence value for value at sweeps 0-6, within TOL
+    of the twin."""
+    dinv, dn, dms, support = _heat_bsgs(cuda, dtype, n)
+    v = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n * n, 1))).to(cuda, dtype)
+    for sweeps in range(7):
+        app = bk.BsgsApply(dinv, dn, dms, sweeps, support)
+        assert app.design == "cluster" and app.plan.clusters > 1
+        f0, c0 = bk.bsgs_apply.launches, bk.bsgs_apply.cluster_launches
+        n0 = bk.banded_apply.launches
+        z = app(v)
+        torch.cuda.synchronize()
+        assert bk.bsgs_apply.cluster_launches == c0 + 1
+        assert bk.bsgs_apply.launches == f0
+        assert bk.banded_apply.launches == n0
+        assert torch.equal(z, bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)), \
+            sweeps
+        assert _rel_err(z, bk.bsgs_apply_plain(dinv, dn, dms, sweeps, v)) \
+            <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("NC,reach", [(1, 0), (129, 5), (1000, 37),
+                                      (12_803, 113), (262_147, 200)])
+def test_bsgs_cluster_equals_sequence_v1(cuda, dtype, NC, reach):
+    """Random local structures, every K 1-8 and sweeps 0-6, NC not a
+    multiple of the cells a cluster owns: the cluster design, equal to the
+    sequence value for value."""
+    for K in range(1, bk.MAX_BANDS + 1):
+        dinv, dn, dms, support, v = _local_inputs(cuda, dtype, NC, K, reach)
+        for sweeps in range(7):
+            app = bk.BsgsApply(dinv, dn, dms, sweeps, support)
+            assert app.design == "cluster", (K, sweeps)
+            assert NC % app.plan.owned or app.plan.clusters == 1
+            z = app(v)
+            zs = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+            assert torch.equal(z, zs), (K, sweeps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsgs_cluster_sizes(cuda, dtype):
+    """Clusters of 2, 4, 8 and (where the card takes them) 16 CTAs, forced:
+    each equals the sequence value for value."""
+    NC, K, reach, sweeps = 50_003, 4, 64, 6
+    dinv, dn, dms, support, v = _local_inputs(cuda, dtype, NC, K, reach)
+    want = bk.bsgs_sequence(dinv, dn, dms, sweeps)(v)
+    taken = bk.bsgs_cluster_limits(cuda)["max_clusters"]
+    assert taken[8] >= 1
+    for C in (2, 4, 8, 16):
+        if not taken[C]:
+            assert C == 16
+            continue
+        app = bk.BsgsApply(dinv, dn, dms, sweeps, support, cluster=C)
+        assert app.design == "cluster" and app.plan.cluster == C
+        assert torch.equal(app(v), want), C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsgs_cluster_in_a_cuda_graph(cuda, dtype):
+    """The heat equation's 512x512 apply captured in a CUDA graph replays
+    as it runs eagerly (the kernel keeps no state between launches), with
+    eager applies in between."""
+    dinv, dn, dms, support = _heat_bsgs(cuda, dtype, 512)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    vs = [torch.randn(512 * 512, 1, device=cuda, dtype=dtype, generator=g)
+          for _ in range(3)]
+    app = bk.BsgsApply(dinv, dn, dms, 6, support)
+    assert app.design == "cluster"
+    wants = [app(v) for v in vs]
+    assert torch.equal(wants[0], bk.bsgs_sequence(dinv, dn, dms, 6)(vs[0]))
+    static_v = vs[0].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_z = app(static_v)
+    for i in range(30):
+        static_v.copy_(vs[i % 3])
+        graph.replay()
+        assert torch.equal(static_z, wants[i % 3]), i
+        if i % 7 == 0:
+            assert torch.equal(app(vs[(i + 1) % 3]), wants[(i + 1) % 3]), i
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsgs_cooperative_forced_at_v1(cuda, dtype):
+    """design="cooperative" still runs the cooperative kernel at 1x1 blocks
+    on the heat operator, equal to the sequence and to the cluster design;
+    design="cluster" where a band wraps, or at 4x4 blocks, raises before a
+    launch."""
+    dinv, dn, dms, support = _heat_bsgs(cuda, dtype, 256)
+    v = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (256 * 256, 1))).to(cuda, dtype)
+    coop = bk.BsgsApply(dinv, dn, dms, 6, support, design="cooperative")
+    assert coop.design == "cooperative"
+    f0, c0 = bk.bsgs_apply.launches, bk.bsgs_apply.cluster_launches
+    z = coop(v)
+    torch.cuda.synchronize()
+    assert bk.bsgs_apply.launches == f0 + 1
+    assert bk.bsgs_apply.cluster_launches == c0
+    assert torch.equal(z, bk.bsgs_sequence(dinv, dn, dms, 6)(v))
+    assert torch.equal(z, bk.BsgsApply(dinv, dn, dms, 6, support,
+                                       design="cluster")(v))
+    wrap = ((0, 256 * 256),) * len(dms)          # every band wraps
+    assert bk.BsgsApply(dinv, dn, dms, 6, wrap).design == "cooperative"
+    with pytest.raises(ValueError):
+        bk.BsgsApply(dinv, dn, dms, 6, wrap, design="cluster")
+    d4, n4, m4, _ = _bsgs_inputs(cuda, dtype, 129, 4)
+    with pytest.raises(ValueError):
+        bk.BsgsApply(d4, n4, m4, 6, design="cluster")
+    assert bk.bsgs_apply.launches == f0 + 1
 
 
 def _basis(g, rows, n, dtype, dev):
