@@ -1,0 +1,17 @@
+"""Share of the traced solve in which nothing ran on the card: 1 - the
+union of the device's activity intervals over the traced window
+(benchmark/tracing.py)."""
+
+LAYER = "device"
+UNIT = "%"
+SOURCE = "device_trace"
+BETTER = "lower"
+MOVES = "solve_s"
+WORKLOADS = ["cyl640-solve"]
+
+
+def read(obs):
+    tr = obs.get("trace")
+    if not tr or tr["busy_s"] <= 0.0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

@@ -1,0 +1,20 @@
+"""The main path's preconditioner apply, bsgs x 6 (the banded apply the
+solver builds, K1b today), as a share of its roofline: the bytes of D^-1,
+four blocks of D^-1 N a cell, v and z at 3.35 TB/s over its device time
+(benchmark/roofline.py), on the operators of a main step the window ran."""
+
+from benchmark import roofline
+
+LAYER = "kernels"
+UNIT = "%"
+SOURCE = "device_trace"
+BETTER = "higher"
+MOVES = "solve_s"
+WORKLOADS = ["cyl640-solve"]
+
+
+def read(obs):
+    op = obs["operators"]().get("banded_precond")
+    if op is None or not op["x"].is_cuda:
+        return None
+    return roofline.operator_share(op)
