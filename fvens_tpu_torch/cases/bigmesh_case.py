@@ -126,8 +126,7 @@ def run_solve(device, mesh=BIGMESH, warmup: bool = True,
     Returns (u, report) with report a dict of the timed solve: the linear
     solver, wall time (starter included) and the main solve's, starter and
     main steps and Krylov
-    iterations, cell updates per second (cells x main steps / wall),
-    absolute and relative residuals, the entropy error, whether gmres ran
+    iterations, absolute and relative residuals, the entropy error, whether gmres ran
     blocked, and `krylov_iters_all`, the Krylov iterations of every solve
     (one basis append each on the blocked path).
 
@@ -187,7 +186,6 @@ def run_solve(device, mesh=BIGMESH, warmup: bool = True,
         starter_steps=st.steps, starter_krylov_iters=st.total_lin_iters,
         main_steps=info.steps, main_krylov_iters=info.total_lin_iters,
         converged=info.converged,
-        cell_updates_per_s=cm.n_cells * info.steps / wall,
         abs_res=info.finalres, rel_res=info.finalres / info.initres,
         entropy=entropy_error(build_space(case.cfg), cm, u),
         krylov_iters_all=iters_all, device_krylov_iters_all=device_iters_all,

@@ -4,6 +4,7 @@ Usage:  python -m fvens_tpu_torch.cases.cli case.ctrl [--mesh_file m.msh]
             [-options_file opts.solverc] [--device cuda|cpu] [--f32]
             [--vtu out.vtu] [--surface s.dat] [--volume v.dat]
             [--history h.jsonl] [--checkpoint ck.npz] [--devices N]
+            [--trace_dir DIR]
 
 The twin of the JAX package's cases/cli.py, mirroring the reference's
 fvens_steady program (FVENS src/fvens_steady.cpp:15-57): parse the control
@@ -34,11 +35,19 @@ step (dist/shard.py), as the JAX package's distributed solve pipelines its
 step program: captured with its NCCL collectives on the card, eager over
 gloo on the CPU (the CLI never shares a card between ranks, the one route
 where the host loop would run).
+
+`--trace_dir DIR` runs the solve under a torch.profiler
+(io_config/logs.device_trace, the counterpart of FVENS's -log_view) and
+writes its Chrome trace to DIR/trace.json (DIR/rank<r>/trace.json for
+each rank of a --devices run): the kernels, the host's operators and the
+program's spans (the residual, the Jacobian, the Krylov solve and its
+preconditioner applies, graph replays) on one clock.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -91,6 +100,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "controlled step; trajectory-identical up to the "
                          "Krylov update's rounding)")
     ap.add_argument("--log_every", type=int, default=10)
+    ap.add_argument("--trace_dir", default=None,
+                    help="profile the solve and write its Chrome trace "
+                         "(kernels, operators and the solver's spans) to "
+                         "DIR/trace.json")
     return ap.parse_args(argv)
 
 
@@ -139,7 +152,7 @@ def _run(args, comm=None) -> int:
     import numpy as np
     import torch
 
-    from ..io_config import parse_control_file, write_vtu
+    from ..io_config import logs, parse_control_file, write_vtu
     from ..io_config.logs import ConvergenceLogger
     from ..mesh.device_mesh import compile_mesh
     from ..mesh.reader import read_mesh
@@ -202,27 +215,34 @@ def _run(args, comm=None) -> int:
     logger = (ConvergenceLogger(path=args.history,
                                 print_every=args.log_every, label="main")
               if lead else None)
+    trace = contextlib.nullcontext()
+    if args.trace_dir:
+        trace = logs.device_trace(
+            args.trace_dir if comm is None
+            else os.path.join(args.trace_dir, f"rank{comm.rank}"))
     t0 = time.perf_counter()
     try:
-        if cfg.sim_type == "unsteady":
-            if not lead:
-                return 0
-            # ctrl-driven physical-time run (reference casesolvers.cpp:
-            # 424-444); writes the state at final_time
-            u, info, fnls = UnsteadyFlowCase(cfg).run_output(mesh)
-            print(f"fvens_tpu_torch: unsteady TVDRK{cfg.time_order} to "
-                  f"t={cfg.final_time} in {info.steps} steps")
-        elif comm is not None:
-            case = DistributedFlowCase(cfg, n_devices=comm.size,
-                                       dtype=dtype)
-            u, info, fnls = case.rank_run_output(
-                comm, md, log_every=args.log_every, logger=logger, mesh=mesh)
-            if not lead:
-                return 0
-        else:
-            case = SteadyFlowCase(cfg)
-            u, info, fnls = case.run_output(mesh, log_every=args.log_every,
-                                            logger=logger)
+        with trace:
+            if cfg.sim_type == "unsteady":
+                if not lead:
+                    return 0
+                # ctrl-driven physical-time run (reference casesolvers.cpp:
+                # 424-444); writes the state at final_time
+                u, info, fnls = UnsteadyFlowCase(cfg).run_output(mesh)
+                print(f"fvens_tpu_torch: unsteady TVDRK{cfg.time_order} to "
+                      f"t={cfg.final_time} in {info.steps} steps")
+            elif comm is not None:
+                case = DistributedFlowCase(cfg, n_devices=comm.size,
+                                           dtype=dtype)
+                u, info, fnls = case.rank_run_output(
+                    comm, md, log_every=args.log_every, logger=logger,
+                    mesh=mesh)
+                if not lead:
+                    return 0
+            else:
+                case = SteadyFlowCase(cfg)
+                u, info, fnls = case.run_output(
+                    mesh, log_every=args.log_every, logger=logger)
     finally:
         if logger is not None:
             logger.close()

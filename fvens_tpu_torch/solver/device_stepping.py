@@ -56,6 +56,7 @@ import time
 
 import torch
 
+from ..io_config import logs
 from . import device_counts
 from .graph_if import ZERO, GraphControl
 from .linear import EAGER, _sel
@@ -122,6 +123,7 @@ class Readback:
             self.host = v
 
     def get(self) -> list:
+        logs.count("host_syncs")
         if self.event is not None:
             self.event.synchronize()
         return self.host.tolist()
@@ -196,7 +198,8 @@ class _Captured:
                 torch.cuda.set_sync_debug_mode(mode)
                 self.capture_s += time.perf_counter() - t0
             prepare()
-        self.graph.replay()
+        with logs.span("graph.replay"):
+            self.graph.replay()
         return self.outputs
 
 

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..io_config import logs
 from .givens_kernels import givens_column
 from .graph_if import GREATER, LESS, cond_set
 from .rowset_kernels import row_set
@@ -440,6 +441,7 @@ def gmres(matvec: Callable, b, x0, pc: Callable, restart: int = 30,
     pcf = lambda v: pc(v.reshape(shape)).reshape(n)
 
     bnorm = hdt(_norm2(bf, allreduce).item())
+    logs.count("host_syncs")
     tol = hdt(rtol) * bnorm
     ncycles = max(1, -(-maxiter // restart))
 
@@ -470,6 +472,7 @@ def _cycle_classic(mv, pcf, bf, x, m, tol, hdt, ar=None):
     Z = torch.zeros((m, n), dtype=dtype, device=dev)
     V[0] = r / torch.clamp_min(beta_d, 1e-300)
     beta = hdt(beta_d.item())
+    logs.count("host_syncs")
 
     H = np.zeros((m + 1, m), hdt)
     cs = np.zeros(m, hdt)
@@ -479,7 +482,8 @@ def _cycle_classic(mv, pcf, bf, x, m, tol, hdt, ar=None):
     j = 0
     res = beta
     while j < m and res > tol:
-        z = pcf(V[j])
+        with logs.span("krylov.precond"):
+            z = pcf(V[j])
         w = mv(z)
         Z[j] = z
 
@@ -495,6 +499,7 @@ def _cycle_classic(mv, pcf, bf, x, m, tol, hdt, ar=None):
         V[j + 1] = w / torch.clamp_min(hn, 1e-300)
         hcol = np.zeros(m + 1, hdt)
         hcol[:j + 2] = torch.cat([h, hn[None]]).cpu().numpy()
+        logs.count("host_syncs")
         res = _hessenberg_column(hcol, j, cs, sn, g, tiny)
         H[:, j] = hcol
         j += 1
@@ -514,6 +519,7 @@ def _cycle_blocked(mv, pcf, bf, x, m, tol, hdt):
     V = torch.zeros((mpad, n), dtype=dtype, device=dev)
     V[0] = r / torch.clamp_min(beta_d, 1e-300)
     beta = hdt(beta_d.item())
+    logs.count("host_syncs")
 
     H = np.zeros((m + 1, m), hdt)
     cs = np.zeros(m, hdt)
@@ -523,11 +529,14 @@ def _cycle_blocked(mv, pcf, bf, x, m, tol, hdt):
     j = 0
     res = beta
     while j < m and res > tol:
-        w = mv(pcf(V[j]))
+        with logs.span("krylov.precond"):
+            z = pcf(V[j])
+        w = mv(z)
         wn0 = _norm2(w)
         h, w = _mgs_pass(V, w, j + 1)
         hn = _norm2(w)
         wn = torch.stack([wn0, hn]).cpu().numpy()
+        logs.count("host_syncs")
         # the selective second pass, decided at the Krylov dtype
         if wn[1] < hdt(0.7) * wn[0]:
             h2, w = _mgs_pass(V, w, j + 1)
@@ -536,12 +545,16 @@ def _cycle_blocked(mv, pcf, bf, x, m, tol, hdt):
         row_set(V, j + 1, w, hn)
         hcol = np.zeros(m + 1, hdt)
         hcol[:j + 2] = torch.cat([h[:j + 1], hn[None]]).cpu().numpy()
+        logs.count("host_syncs")
         res = _hessenberg_column(hcol, j, cs, sn, g, tiny)
         H[:, j] = hcol
         j += 1
 
     if j > 0:
-        x = x + pcf(_rows_combine(V, _least_squares(H, g, j, dev), j))
+        y = _rows_combine(V, _least_squares(H, g, j, dev), j)
+        with logs.span("krylov.precond"):
+            z = pcf(y)
+        x = x + z
     return x, j, res
 
 
@@ -836,6 +849,7 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     ar = allreduce if dist else (lambda t: t)
 
     bnorm = hdt(_norm2(bf, ar).item())
+    logs.count("host_syncs")
     tol = hdt(rtol) * bnorm
     m = restart
     ncycles = max(1, -(-maxiter // restart))
@@ -877,6 +891,7 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
         B = torch.zeros((k, m), dtype=dtype, device=dev)
         V[0] = r / torch.clamp_min(beta_d, 1e-300)
         beta = hdt(beta_d.item())
+        logs.count("host_syncs")
         H = np.zeros((m + 1, m), hdt)
         cs = np.zeros(m, hdt)
         sn = np.zeros(m, hdt)
@@ -885,7 +900,8 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
         j = 0
         res = beta
         while j < m and res > tol:
-            z = pcf(V[j])
+            with logs.span("krylov.precond"):
+                z = pcf(V[j])
             w = mv(z)
             Z[j] = z
             if have_U:
@@ -902,6 +918,7 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
             V[j + 1] = w / torch.clamp_min(hn, 1e-300)
             hcol = np.zeros(m + 1, hdt)
             hcol[:j + 2] = torch.cat([h, hn[None]]).cpu().numpy()
+            logs.count("host_syncs")
             res = _hessenberg_column(hcol, j, cs, sn, g, tiny)
             H[:, j] = hcol
             j += 1
@@ -929,6 +946,7 @@ def gmres_dr(matvec: Callable, b, x0, pc: Callable, U=None, k: int = 16,
     if have_U:
         G[:k, :k] = np.eye(k, dtype=hdt)
         G[:k, k:] = B.cpu().numpy() * used[None, :]
+        logs.count("host_syncs")
     G[k:, k:] = H * used[None, :]
     # unused Arnoldi columns get a huge unit diagonal so their singular
     # triplets sort to the top and are never harvested

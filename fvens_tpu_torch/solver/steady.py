@@ -84,6 +84,7 @@ import torch
 
 from ..config import (LinearSolverConfig, NonlinearUpdateConfig,
                       PseudoTimeConfig)
+from ..io_config import logs
 from ..io_config.checkpoint import load_checkpoint, save_checkpoint
 from ..io_config.logs import ConvergenceLogger
 from . import jacobian as jacmod
@@ -393,7 +394,8 @@ class SteadyBackwardEuler:
         ranks, which the matrix-free matvec uses too."""
         if bl is None:
             bl = self._banded(mesh)
-        rhs, dt = _residual(self.space, mesh, u, True, exchange)
+        with logs.span("step.residual"):
+            rhs, dt = _residual(self.space, mesh, u, True, exchange)
 
         mixed = self.lin.mixed_precision and u.dtype == torch.float64
         if mixed:
@@ -404,16 +406,18 @@ class SteadyBackwardEuler:
         else:
             lmesh, lu, lrhs, ldt = mesh, u, rhs, dt
 
-        jac = self.space.assemble_jacobian(lmesh, lu)
-        # a Python cfl times an f32 tensor rounds cfl to f32 first
-        jac = jacmod.add_pseudotime_term(lmesh, jac, cfl, ldt)
-        if (bl is not None and not self.lin.matrix_free
-                and self.lin.pc in ("bjacobi", "bsgs")):
-            return rhs, lrhs, banded_operators(bl, jac)
-        mv = (self._matrix_free_matvec(mesh, lmesh, u, lu, rhs, dt, ldt,
-                                       cfl, lrhs.dtype, exchange, allreduce)
-              if self.lin.matrix_free else None)
-        return rhs, lrhs, self._gather_operators(mesh, lmesh, jac, mv)
+        with logs.span("step.jacobian"):
+            jac = self.space.assemble_jacobian(lmesh, lu)
+            # a Python cfl times an f32 tensor rounds cfl to f32 first
+            jac = jacmod.add_pseudotime_term(lmesh, jac, cfl, ldt)
+            if (bl is not None and not self.lin.matrix_free
+                    and self.lin.pc in ("bjacobi", "bsgs")):
+                return rhs, lrhs, banded_operators(bl, jac)
+            mv = (self._matrix_free_matvec(mesh, lmesh, u, lu, rhs, dt, ldt,
+                                           cfl, lrhs.dtype, exchange,
+                                           allreduce)
+                  if self.lin.matrix_free else None)
+            return rhs, lrhs, self._gather_operators(mesh, lmesh, jac, mv)
 
     def _gather_operators(self, mesh, lmesh, jac, matvec=None):
         """GatherOperators on `lmesh` with the preconditioner's structure,
@@ -515,7 +519,8 @@ class SteadyBackwardEuler:
         `defl`: solve with gmres_dr (GCRO-DR, deflation_k directions),
         recycling `U0` (None: a first solve that only harvests)."""
         rhs, lrhs, ops = self.step_operators(mesh, u, cfl, lmesh, bl)
-        matvec, pc = self._linear_operators(ops)
+        with logs.span("step.jacobian"):
+            matvec, pc = self._linear_operators(ops)
 
         if du0 is not None:
             x0 = du0.to(lrhs.dtype)
@@ -525,15 +530,17 @@ class SteadyBackwardEuler:
         else:
             x0 = torch.zeros_like(lrhs)
         U = None
-        if defl:
-            du, iters, relres, U = gmres_dr(
-                matvec, lrhs, x0, pc, U=U0, k=self.lin.deflation_k,
-                restart=self.lin.restart, maxiter=self.lin.maxiter,
-                rtol=rtol)
-        else:
-            du, iters, relres = gmres(matvec, lrhs, x0, pc,
-                                      restart=self.lin.restart,
-                                      maxiter=self.lin.maxiter, rtol=rtol)
+        with logs.span("step.krylov"):
+            if defl:
+                du, iters, relres, U = gmres_dr(
+                    matvec, lrhs, x0, pc, U=U0, k=self.lin.deflation_k,
+                    restart=self.lin.restart, maxiter=self.lin.maxiter,
+                    rtol=rtol)
+            else:
+                du, iters, relres = gmres(matvec, lrhs, x0, pc,
+                                          restart=self.lin.restart,
+                                          maxiter=self.lin.maxiter,
+                                          rtol=rtol)
         du = du.to(u.dtype)
         unew = u + self._update_factor(u, du, omega_cap)[:, None] * du
         # poison the reported norm if ANY residual/state component is
@@ -544,6 +551,7 @@ class SteadyBackwardEuler:
         res = torch.where(ok, residual_norm(mesh, rhs),
                           torch.full((), float("nan"), dtype=rhs.dtype,
                                      device=rhs.device)).item()
+        logs.count("host_syncs")
         if not np.isfinite(relres):
             res = float("nan")
         if return_carry:
@@ -815,6 +823,7 @@ class SteadyBackwardEuler:
                 if (logger and n_ch > 0 and self.functional_fn is not None
                         and self.functional_every):
                     # one functional record a burst, as the JAX package
+                    logs.count("host_syncs")
                     logger.log(step + n_ch, res / initres, res, cfl=cfl,
                                **dict(zip(("entropy", "CL", "CDp", "CDsf"),
                                           torch.stack(self.functional_fn(
@@ -900,6 +909,7 @@ class SteadyBackwardEuler:
             fnl_log = {}
             if (self.functional_fn is not None and self.functional_every
                     and (step + 1) % self.functional_every == 0):
+                logs.count("host_syncs")
                 fnl_log = dict(zip(("entropy", "CL", "CDp", "CDsf"),
                                    torch.stack(self.functional_fn(mesh, u))
                                    .tolist()))

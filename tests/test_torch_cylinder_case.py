@@ -174,7 +174,7 @@ def test_run_solve_converges_like_the_jax_record(blocked_everywhere):
     assert abs(rep["abs_res"] - rec["main"]["final_res"]) \
         <= 1e-4 * rec["main"]["final_res"]
     assert abs(rep["entropy"] - rec["entropy"]) <= 1e-8
-    assert rep["cell_updates_per_s"] > 0 and rep["wall_s"] > 0
+    assert rep["wall_s"] > 0
 
 
 def test_run_output_reports_the_entropy_error(blocked_everywhere):

@@ -476,11 +476,8 @@ def test_logger_writes_the_jax_schema(tmp_path, capsys):
             == {k: v for k, v in b.items() if k != "wall_s"}
 
 
-def test_timed_and_device_trace(tmp_path, capsys):
+def test_timed_and_device_trace(tmp_path):
     x = torch.ones(8)
-    with tlogs.timed("sum", sync=x):
-        x.sum()
-    assert capsys.readouterr().out.startswith("[timed] sum: ")
     with tlogs.device_trace(str(tmp_path / "trace")) as prof:
         (x * 2).sum()
     assert prof is not None and (tmp_path / "trace" / "trace.json").exists()
