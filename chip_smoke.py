@@ -374,6 +374,11 @@ KERNELS = {                     # name: (source, the TPU kernel it replaces)
                             "fvens_tpu/solver/pallas_banded.py:107"),
     "row_set": ("fvens_tpu_torch/csrc/row_set.cu",
                 "fvens_tpu/solver/pallas_banded.py:254"),
+    # no pl.pallas_call: the JAX package's gather path is XLA (a gather
+    # and an einsum)
+    "slot_gather": ("fvens_tpu_torch/csrc/slot_gather.cu",
+                    "fvens_tpu/solver/linear.py bsr_matvec and "
+                    "make_preconditioner's bsgs (XLA; no Pallas kernel)"),
     # no pl.pallas_call: the JAX package's Givens update is XLA inside its
     # FGMRES while loop, and its device-side control flow the loop itself
     "givens_column": ("fvens_tpu_torch/csrc/givens_column.cu",
@@ -612,15 +617,17 @@ PTXAS_BEFORE_V4 = {
 
 
 def build_kernels():
-    """The six CUDA libraries, one nvcc each, started together."""
+    """The seven CUDA libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fvens_tpu_torch.solver import banded_kernels as bk
     from fvens_tpu_torch.solver import givens_kernels as gk
     from fvens_tpu_torch.solver import graph_if
     from fvens_tpu_torch.solver import rowset_kernels as rk
+    from fvens_tpu_torch.solver import slot_kernels as sk
     t0 = time.perf_counter()
-    loaders = {"banded_apply": bk.load_library,
+    loaders = {"slot_gather": sk.load_library,
+               "banded_apply": bk.load_library,
                "banded_bsgs": bk.load_bsgs_library,
                "banded_bsgs_cluster": bk.load_bsgs_cluster_library,
                "row_set": rk.load_library,
@@ -629,7 +636,7 @@ def build_kernels():
     with ThreadPoolExecutor(len(loaders)) as ex:
         jobs = {name: ex.submit(fn) for name, fn in loaders.items()}
         builds = {name: job.result() for name, job in jobs.items()}
-    print(f"build: {time.perf_counter() - t0:.2f} s for all six",
+    print(f"build: {time.perf_counter() - t0:.2f} s for all seven",
           flush=True)
     for name, build in builds.items():
         print(f"  {name}: nvcc {build.seconds:.2f} s -> "
@@ -1010,6 +1017,11 @@ def gather_path(dev):
           f"{launches['row_set']} row_set launches for {its} basis appends")
     check(launches["banded_apply"] == launches["banded_bsgs"] == 0,
           f"the gather solve launched a banded kernel: {launches}")
+    # a bsgs apply and a matvec a Krylov iteration, and each cycle's
+    # residual matvec and trailing apply: one slot kernel call each
+    check(launches["slot_gather"] >= 2 * its,
+          f"{launches['slot_gather']} slot kernel calls for {its} Krylov "
+          "iterations")
     return rep, launches
 
 
@@ -1060,10 +1072,12 @@ def zero_counts():
     from fvens_tpu_torch.solver import givens_kernels as gk
     from fvens_tpu_torch.solver import graph_if
     from fvens_tpu_torch.solver import rowset_kernels as rk
+    from fvens_tpu_torch.solver import slot_kernels as sk
     bk.banded_apply.launches = bk.bsgs_apply.launches = 0
     bk.bsgs_apply.cluster_launches = 0
     rk.row_set.launches = gk.givens_column.launches = 0
     graph_if.GraphControl.launches = graph_if.cond_set.launches = 0
+    sk.SlotKernel.launches = 0
 
 
 def read_counts() -> dict:
@@ -1073,11 +1087,32 @@ def read_counts() -> dict:
     from fvens_tpu_torch.solver import banded_kernels as bk
     from fvens_tpu_torch.solver import givens_kernels as gk
     from fvens_tpu_torch.solver import graph_if
+    from fvens_tpu_torch.solver import slot_kernels as sk
     return dict(kernel_launches(),
+                slot_gather=sk.SlotKernel.launches,
                 banded_bsgs_cluster=bk.bsgs_apply.cluster_launches,
                 givens_column=gk.givens_column.launches,
                 graph_if=graph_if.GraphControl.launches,
                 cond_set=graph_if.cond_set.launches)
+
+
+# the slot kernel against the formula it replaced (index_select, bmm),
+# of max|y|: f32, f64 (the sum order differs)
+SLOT_TOL = {"float32": 1e-5, "float64": 1e-13}
+
+
+def slot_checks(dev) -> list:
+    """The slot kernel in both roles at 640x320 on the NACA0012 O-mesh's
+    gather operators, f32 and f64 (profile_step.slot_kernel_times): held
+    to the formula it replaced, and timed beside its twin and that
+    formula."""
+    from fvens_tpu_torch.cases.profile_step import slot_kernel_times
+    rows = slot_kernel_times(dev)
+    for r in rows:
+        check(r["rel_err"] <= SLOT_TOL[r["dtype"]],
+              f"slot kernel {r['role']} {r['dtype']}: {r['rel_err']!r} of "
+              f"max|y| from the formula")
+    return rows
 
 
 def fused_vs_sequence(dev):
@@ -4607,6 +4642,7 @@ def main() -> int:
                                    heat_state, phase_times=False)
             brows, frows = brows + b3, frows + f3
         rrows = rowset_checks(dev)
+        srows = slot_checks(dev)
         from fvens_tpu_torch.cases.profile_step import (bsgs_phase_cost,
                                                         bsgs_phase_cost_v1)
         phase_cost = {str(dt)[6:]: bsgs_phase_cost(dev, dt)
@@ -4689,6 +4725,8 @@ def main() -> int:
     mv = main_row(brows, op="matvec")
     pc = main_row(frows)
     rs = main_row(rrows, n=ROWSET_SIZES[0])
+    sb = next(r for r in srows if r["role"] == "bsgs"
+              and r["dtype"] == "float64")
     gv = next(r for r in stepping["givens"]
               if r["dtype"] == "float32" and r["j"] == GIVENS_J[1])
 
@@ -4753,6 +4791,16 @@ def main() -> int:
             library_ms=None, **{k: rs[k] for k in keys},
             shape=f"f32 row {rs['j']} of a (96, {rs['n']}) basis",
             library="no single PyTorch call: w / clamp_min(hn) is two"),
+        "slot_gather": dict(
+            max_abs_err=max(r["rel_err"] for r in srows),
+            **{k: sb[k] for k in ("device_ms", "plain_ms", "bound_ms",
+                                  "library_ms", "bound_share")},
+            rows=srows,
+            shape=f"f64 bsgs apply, {sb['sweeps']} sweeps, NC={sb['NC']} "
+                  "(the NACA cell's); the f32 apply and both matvecs in "
+                  "rows",
+            library="index_select and torch.bmm (the formula it "
+                    "replaced)"),
         "givens_column": dict(
             max_abs_err=max(r["max_abs_err"] for r in stepping["givens"]),
             library_ms=None,
@@ -4793,6 +4841,8 @@ def main() -> int:
                     banded_bsgs_cluster=paths[f"{heat} banded"][
                         "banded_bsgs_cluster"],
                     row_set=paths["cylinder 640x320 gather bsgs"]["row_set"],
+                    slot_gather=paths["cylinder 640x320 gather bsgs"][
+                        "slot_gather"],
                     givens_column=stepping["launches"]["givens_column"],
                     graph_if=stepping["launches"]["graph_if"],
                     cond_set=stepping["launches"]["cond_set"])

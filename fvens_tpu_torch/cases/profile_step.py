@@ -2,7 +2,7 @@
 
     python -m fvens_tpu_torch.cases.profile_step \
         [--case bench|cylinder|cylinder-gather|rowset|slot-gather|kernels
-                |bsgs-v1]
+                |bsgs-v1|slot-kernel]
         [--pc bsgs|bcsgs|ilu0|amg|bline|mf-jvp|mf-fd|bsgs-recycle]
         [--device cuda|cpu]
 
@@ -20,7 +20,10 @@ the card or (`--device cpu`) on the CPU (slot_gather_profile). `kernels`
 times the three kernels on their main-path operators, in two rounds
 (kernel_times); `bsgs-v1` the bsgs apply at 1x1 blocks in each of its
 designs on the heat equation's operators at 256x256 and 512x512, and a
-phase's fixed cost in each (bsgs_v1_times). The others
+phase's fixed cost in each (bsgs_v1_times); `slot-kernel` the gather
+path's slot kernel in both roles on the 640x320 NACA0012 O-mesh's
+operators beside its twin and the formula it replaced
+(slot_kernel_times). The others
 run WARM_STEPS steps, once through the CUDA
 kernels and once through the plain banded twins (pallas=False; blocked
 GMRES's basis appends stay the row_set kernel, which, as in the JAX
@@ -60,6 +63,7 @@ CPU tensors, where it measures host time only.
 
 from __future__ import annotations
 
+import functools
 import json
 import time
 
@@ -679,11 +683,111 @@ def kernel_times(dev):
     print("kernels", json.dumps(rec), flush=True)
 
 
+SLOT_MESH = (640, 320)          # naca0012_omesh: the NACA cell's mesh
+SLOT_SWEEPS = 6
+HBM_BYTES_PER_S = 3.35e12       # an H100 SXM's published bandwidth
+
+
+def slot_operators(dev, dtype, mesh=SLOT_MESH):
+    """(mesh, BlockJacobian) of the bench physics on the gather path at a
+    perturbed free stream on naca0012_omesh(*mesh), at `dtype` (f32: the
+    mixed-precision Krylov system)."""
+    import numpy as np
+    solver, cm = bench_solver(dev, mesh=mesh, banded=False,
+                              mixed=dtype == torch.float32)
+    u0 = initial_state(solver.space, cm)
+    u0 = u0 * (1.0 + 0.01 * torch.from_numpy(
+        np.random.default_rng(0).standard_normal(tuple(u0.shape))).to(dev))
+    _, _, ops = solver.step_operators(cm, u0, 500.0)
+    return ops.mesh, ops.jac
+
+
+def _slot_formula(m, jac, sweeps):
+    """(matvec, bsgs apply) as the solver ran them before the slot kernel:
+    index_select of flat elements (linear._gather_rows), bmm, subtract."""
+    NC, V = jac.D.shape[0], jac.D.shape[-1]
+    self_idx = torch.arange(NC, dtype=m.cell_nbrs.dtype, device=jac.D.device)
+    idx = torch.cat([self_idx[:, None], linear._nbrs_in_range(m)], dim=1)
+    elems = linear._row_elements(idx, V)
+    op = linear._slot_operand(torch.cat([jac.D[:, None], jac.N], dim=1))
+    Dinv = linear.block_jacobi_inverse(jac.D)
+    DN = linear._slot_operand(torch.einsum("cij,ckjl->ckil", Dinv, jac.N))
+    nbrs = linear._nbrs_in_range(m)
+    nelems = linear._row_elements(nbrs, V)
+
+    def mv(x):
+        return linear._slot_apply(op, linear._gather_rows(x, elems,
+                                                          idx.shape))
+
+    def pc(v):
+        dv = torch.einsum("cij,cj->ci", Dinv, v)
+        z = dv
+        for _ in range(sweeps):
+            z = dv - linear._slot_apply(DN, linear._gather_rows(
+                z, nelems, nbrs.shape))
+        return z
+    return mv, pc
+
+
+def slot_kernel_times(dev):
+    """The slot kernel (solver/slot_kernels.py) in both roles on
+    slot_operators at f32 and f64: device ms (device_ms) of the matvec and
+    of the bsgs x SLOT_SWEEPS apply, of the apply at 0 and 1 sweeps, of the
+    plain twin on the card and of the formula the solver ran before
+    (`library_ms`: index_select and bmm), each held to the formula (the
+    relative max difference), and the bound: each input read once and the
+    output written once at HBM_BYTES_PER_S. Returns the rows; prints one
+    "slot kernel" JSON line each."""
+    from ..solver import slot_kernels as sk
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(0)
+    for dtype in (torch.float32, torch.float64):
+        m, jac = slot_operators(dev, dtype)
+        NC, V = jac.D.shape[0], jac.D.shape[-1]
+        itemsize = jac.D.element_size()
+        bound_ms = 1e3 * m.n_cells * itemsize * (5 * V * V + 2 * V) \
+            / HBM_BYTES_PER_S
+        x = torch.randn(NC, V, device=dev, dtype=dtype, generator=g)
+        fmv, fpc = _slot_formula(m, jac, SLOT_SWEEPS)
+        mv = linear.make_bsr_matvec(m, jac)
+        for role, fn, want, twin in (
+                ("matvec", mv, fmv,
+                 lambda: sk.slot_matvec_plain(mv.op, mv.idx, x)),
+                ("bsgs", None, fpc, None)):
+            if role == "bsgs":
+                fn = linear.make_preconditioner(m, jac, "bsgs", SLOT_SWEEPS)
+                twin = functools.partial(sk.slot_bsgs_plain, fn.dinv, fn.op,
+                                         fn.idx, SLOT_SWEEPS, x)
+            ref = want(x)
+            got = fn(x)
+            torch.cuda.synchronize(dev)
+            rec = dict(role=role, dtype=str(dtype)[6:], cells=m.n_cells,
+                       NC=NC, sweeps=SLOT_SWEEPS if role == "bsgs" else None,
+                       card=torch.cuda.get_device_name(dev),
+                       rel_err=float((got - ref).abs().max()
+                                     / ref.abs().max()),
+                       bound_ms=bound_ms,
+                       device_ms=device_ms(lambda: fn(x)),
+                       plain_ms=_event_ms(twin, runs=20),
+                       # 20 calls: the formula's bsgs apply is 20
+                       # launches, and the launch queue holds about 1,000
+                       library_ms=device_ms(lambda: want(x), n=20))
+            rec["bound_share"] = bound_ms / rec["device_ms"]
+            if role == "bsgs":
+                for k in (0, 1):
+                    pk = sk.SlotKernel(fn.op, fn.idx, dinv=fn.dinv, sweeps=k)
+                    rec[f"device_ms_{k}_sweeps"] = device_ms(lambda: pk(x))
+            print("slot kernel", json.dumps(rec), flush=True)
+            rows.append(rec)
+    return rows
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--case", choices=sorted(MESHES) + [
-        "rowset", "slot-gather", "kernels", "bsgs-v1"], default="bench")
+        "rowset", "slot-gather", "kernels", "bsgs-v1", "slot-kernel"],
+        default="bench")
     ap.add_argument("--pc", choices=sorted(GATHER), default="bsgs",
                     help="the preconditioner of --case cylinder-gather")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -703,6 +807,9 @@ def main():
         return
     if args.case == "bsgs-v1":
         bsgs_v1_times(dev)
+        return
+    if args.case == "slot-kernel":
+        slot_kernel_times(dev)
         return
     gather = args.case == "cylinder-gather"
     for pallas in (True,) if gather else (True, False):

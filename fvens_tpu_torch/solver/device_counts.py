@@ -24,9 +24,11 @@ import torch
 # "bsgs_cluster" the cluster kernel's (banded_kernels.BsgsApply.design);
 # "graph_if" the IF nodes reached (live or dead), "set_if" the
 # set-condition kernels of generic nodes, "cond_set" the compare-and-set
-# kernel's launches (solver/graph_if.py)
+# kernel's launches (solver/graph_if.py); "slot_kernel" the gather path's
+# slot contraction's C calls (solver/slot_kernels.py: a matvec, or a whole
+# bsgs apply)
 NAMES = ("banded_apply", "bsgs_apply", "row_set", "givens_column",
-         "graph_if", "set_if", "cond_set", "bsgs_cluster")
+         "graph_if", "set_if", "cond_set", "bsgs_cluster", "slot_kernel")
 
 _COUNTS = {}               # device index: int64 tensor (len(NAMES),)
 _KEPT = {}                 # every counter made, counting or not

@@ -29,7 +29,9 @@ is a one-element torch.bool tensor and iters a one-element int32 tensor,
 all on one device. The kernel (csrc/givens_column.cu) rounds every
 operation separately (no FMA contraction, IEEE square root and division),
 as `givens_plain`, the plain PyTorch twin, does: the two agree bit for
-bit. With the host's NumPy arithmetic they agree bit for bit but where
+bit. PyTorch's CPU square root is not IEEE's (about one root in 150 lies
+an ulp off, within 0.51 ulp of the exact root), so the twin rounds its
+root itself (`sqrt_rn`). With the host's NumPy arithmetic they agree bit for bit but where
 NumPy's scalar ** 2 (pow) rounds one of the two squares off the product
 that the kernel, the twin and the JAX package's XLA form (about one square
 in 1,500): there the results differ in the last bits.
@@ -54,6 +56,7 @@ from . import device_counts
 TINY = 1e-300              # the clamp of the denominator; rounds to 0 at f32
 MAX_RESTART = 512          # the kernel's limit on the restart
 
+_SPLIT = 134217729.0       # 2^27 + 1: Veltkamp's split of a float64
 _LIB = None                # (ctypes.CDLL, BuildInfo), built at first use
 _FNS = {}                  # dtype: the kernel's C entry point
 
@@ -80,6 +83,53 @@ def load_library():
     return _LIB[1]
 
 
+def _two_sum(a, b):
+    """Knuth's TwoSum: (fl(a + b), the error), their sum exactly a + b."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def sqrt_rn(x):
+    """sqrt(x) rounded to nearest, as IEEE square root (the kernel's) gives
+    it, for any float64 or float32 tensor. torch.sqrt's root r lies within
+    an ulp; it moves to its neighbour where the midpoint between them, r +
+    d, lies on r's side of the exact root: where x - (r + d)^2, summed
+    exactly from Dekker's r^2 = p + e and Knuth's TwoSum (every term and
+    error on one grid of 2^-108 r^2, the errors' sum exact), has the sign
+    that says so. x is first scaled by a power of four into [2^-500,
+    2^500], so nothing overflows or underflows; 0, inf and NaN keep
+    torch.sqrt's root. A float32 root is the float64 root rounded: within
+    an ulp of float64 it rounds as the exact root does, since no float32
+    square root lies that near a float32 midpoint."""
+    if x.dtype != torch.float64:
+        return sqrt_rn(x.double()).to(x.dtype)
+    big, small = x > 2.0 ** 500, x < 2.0 ** -500
+    xs = torch.where(big, x * 2.0 ** -600,
+                     torch.where(small, x * 2.0 ** 600, x))
+    r = torch.sqrt(xs)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.zeros_like(r))
+    c = _SPLIT * r
+    hi = c - (c - r)
+    lo = r - hi
+    p = r * r
+    e = ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+
+    def beyond(d):
+        """fl of x - (r + d)^2 with the exact sign."""
+        s1, t1 = _two_sum(xs, -p)
+        s2, t2 = _two_sum(s1, -e)
+        s3, t3 = _two_sum(s2, -2.0 * r * d)
+        s4, t4 = _two_sum(s3, -d * d)
+        return s4 + ((t1 + t2) + (t3 + t4))
+
+    root = torch.where(beyond((up - r) * 0.5) > 0, up,
+                       torch.where(beyond((dn - r) * 0.5) < 0, dn, r))
+    return torch.where(big, root * 2.0 ** 300,
+                       torch.where(small, root * 2.0 ** -300, root))
+
+
 def givens_plain(h, hn, j: int, H, cs, sn, g, res, tol, live, iters,
                  next_cond=None):
     """Plain PyTorch twin of the kernel, the same recurrence one operation
@@ -94,7 +144,7 @@ def givens_plain(h, hn, j: int, H, cs, sn, g, res, tol, live, iters,
         col[i] = c * a + s * b
         col[i + 1] = -s * a + c * b
     a, b = col[j], col[j + 1]
-    denom = torch.sqrt(a * a + b * b)
+    denom = sqrt_rn(a * a + b * b)
     d = torch.where(denom < TINY, torch.full_like(denom, TINY), denom)
     c, s = a / d, b / d
     col[j], col[j + 1] = denom, torch.zeros_like(denom)

@@ -10,12 +10,14 @@ convergence test needs anyway).
 
 GMRES has both of the JAX package's paths: the classic CGS2 one and, from
 262,144 vector elements, the blocked low-traffic one, whose basis appends
-are the CUDA kernel of solver/rowset_kernels.py. The gather path's
-operators are plain PyTorch: the slot matvec and every preconditioner of
-make_preconditioner (none, bjacobi, bsgs, bcsgs, the fixed-point block
-ILU0 of solver/ilu.py, the line smoother over solver/lines.py and the
-aggregation multigrid of solver/multigrid.py). gmres_dr is the JAX
-package's GCRO-DR recycling GMRES, on the classic path at every size.
+are the CUDA kernel of solver/rowset_kernels.py. On the gather path the
+slot matvec and the bsgs apply are the slot kernel of
+solver/slot_kernels.py (plain PyTorch twins on the CPU); the other
+preconditioners of make_preconditioner (none, bjacobi, bcsgs, the
+fixed-point block ILU0 of solver/ilu.py, the line smoother over
+solver/lines.py and the aggregation multigrid of solver/multigrid.py) are
+plain PyTorch. gmres_dr is the JAX package's GCRO-DR recycling GMRES, on
+the classic path at every size.
 
 gmres_device is gmres with its control on the device, the counterpart of
 the JAX package's while-loop FGMRES: the same two paths, the Givens work by
@@ -40,6 +42,7 @@ from ..io_config import logs
 from .givens_kernels import givens_column
 from .graph_if import GREATER, LESS, cond_set
 from .rowset_kernels import row_set
+from .slot_kernels import SlotKernel
 
 
 class BlockJacobian(NamedTuple):
@@ -75,8 +78,8 @@ def _gather_rows(x, elems, shape):
     and idx of `shape`: the same values, gathered element by element from
     the flat tensor. On CUDA PyTorch gathers 16-byte rows (x[idx],
     index_select of rows) with its vectorized gather kernel, one 32-thread
-    block per index: 0.62 ms for the (NC, 5) gather of the 640x320 matvec
-    on an H100, against 0.024 ms element by element, as fast as torch.take
+    block per index: 0.62 ms for an (NC, 5) gather at 640x320 on an H100,
+    against 0.024 ms element by element, as fast as torch.take
     (PERF.md section 5; profile_step --case slot-gather). On the CPU
     torch.take can hand even a few thousand elements to the thread pool;
     index_select does not."""
@@ -101,21 +104,18 @@ def _slot_apply(op, xg):
 
 
 def make_bsr_matvec(mesh, jac: BlockJacobian) -> Callable:
-    """Returns mv(x) = J x as one (NC,5) row gather + one batched block
-    contraction: the diagonal joins the neighbour slots as a fifth
-    self-pointing slot. The fused (NC,5,V,V) operand is built here, ONCE per
-    Jacobian — call this outside the Krylov loop."""
+    """Returns mv(x) = J x as one slot contraction over five slots: the
+    diagonal joins the neighbour slots as a first, self-pointing slot. On
+    CUDA it is the slot kernel (solver/slot_kernels.py), one launch; on the
+    CPU its twin, one (NC,5) row gather and one batched block product. The
+    fused (NC,V,5V) operand is built here, ONCE per Jacobian — call this
+    outside the Krylov loop."""
     NC = jac.D.shape[0]
     self_idx = torch.arange(NC, dtype=mesh.cell_nbrs.dtype,
                             device=jac.D.device)
     idx = torch.cat([self_idx[:, None], _nbrs_in_range(mesh)], dim=1)
-    elems = _row_elements(idx, jac.D.shape[-1])
-    op = _slot_operand(torch.cat([jac.D[:, None], jac.N], dim=1))
-
-    def mv(x):
-        return _slot_apply(op, _gather_rows(x, elems, idx.shape))
-
-    return mv
+    return SlotKernel(
+        _slot_operand(torch.cat([jac.D[:, None], jac.N], dim=1)), idx)
 
 
 PRECONDITIONERS = ("none", "bjacobi", "bsgs", "bcsgs", "ilu0", "bline",
@@ -132,8 +132,9 @@ def make_preconditioner(mesh, jac: BlockJacobian, kind: str = "bjacobi",
       - none: v;
       - bjacobi: z = D^-1 v;
       - bsgs: `sweeps` block-Jacobi sweeps z' = D^-1 v - (D^-1 N) z_nbr
-        from z = D^-1 v, each one (NC,4) slot gather and one batched block
-        product;
+        from z = D^-1 v: on CUDA the whole apply is one call of the slot
+        kernel (solver/slot_kernels.py); on the CPU its twin, each sweep
+        one (NC,4) slot gather and one batched block product;
       - bcsgs: multicolor block SGS (make_colored_sgs), `sweeps` forward and
         backward color passes;
       - ilu0: the fixed-point block ILU0 of solver/ilu.py (`ilu` its
@@ -174,16 +175,7 @@ def make_preconditioner(mesh, jac: BlockJacobian, kind: str = "bjacobi",
     # the defect-correction sweep z + D^-1(v - J z) reduces exactly to
     # block-Jacobi z' = D^-1 v - (D^-1 N) z_nbr (J = D + N)
     DN = _slot_operand(torch.einsum("cij,ckjl->ckil", Dinv, jac.N))
-    nbrs = _nbrs_in_range(mesh)
-    elems = _row_elements(nbrs, jac.D.shape[-1])
-
-    def pc(v):
-        dv = apply_dinv(v)
-        z = dv
-        for _ in range(sweeps):
-            z = dv - _slot_apply(DN, _gather_rows(z, elems, nbrs.shape))
-        return z
-    return pc
+    return SlotKernel(DN, _nbrs_in_range(mesh), dinv=Dinv, sweeps=sweeps)
 
 
 def make_line_smoother(mesh, jac: BlockJacobian, lines, sweeps: int = 1):
